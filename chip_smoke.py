@@ -1,0 +1,516 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's stage-1 eval render on one NVIDIA H100.
+
+Phases (each prints one flushed line with its wall time; any failure ends
+the run with a non-zero exit and no result line):
+
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels (one nvcc call) and print ptxas's register and
+     shared-memory lines;
+  3. make a stage-1 `dnerf` model from --seed with numpy: 200k random
+     Gaussians, SH degree 3, a numpy-initialised d=4 w=256 deform MLP and
+     32-d motion features; capacity sized by the port's probe_slot_need;
+  4. run each kernel (stack, expand, interleave, forward blend) on the
+     inputs the first view's render hands it, beside its plain PyTorch
+     version: stack, expand and interleave must be equal, the blend within
+     2e-5 on rgb and T, 2e-4 on depth, tidx equal where the top weight
+     beats the runner-up by more than 1e-6 relative;
+  5. render a small scene against the torch oracle
+     (ops/rasterize_reference.py) through the kernels;
+  6. render_set over 5 orbit views at 800x800 with the launch counts set
+     to 0 just before and read just after: finite, non-constant images,
+     n_dropped == 0, every kernel launched, one view rendered twice
+     bit-identical; ms per view from CUDA events;
+  7. a torch.profiler breakdown of one view's device time;
+  8. a `kernels` JSON line, the nvidia-smi line, and as the last line
+     {"ok": true, "device": {...}}.
+
+Usage:
+  python3 chip_smoke.py                # on a machine with one CUDA card
+  python3 chip_smoke.py --rehearse     # the same phases on the CPU at 2k
+                                       # Gaussians and 128x128, plain
+                                       # versions, no result line
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+F32_PEAK = 67e12       # H100 SXM f32 (non-tensor) FLOP/s, NVIDIA data sheet
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 bytes/s
+
+REPLACES = {
+    "stack": "gaussianprediction_tpu/ops/expand_pallas.py:410",
+    "expand": "gaussianprediction_tpu/ops/expand_pallas.py:298",
+    "interleave": "gaussianprediction_tpu/ops/expand_pallas.py:355",
+    "blend_fwd": "gaussianprediction_tpu/ops/rasterize_pallas.py:337",
+}
+SOURCES = {
+    "stack": "gaussianprediction_tpu_torch/kernels/csrc/stack_rows.cu",
+    "expand": "gaussianprediction_tpu_torch/kernels/csrc/expand_rows.cu",
+    "interleave":
+        "gaussianprediction_tpu_torch/kernels/csrc/interleave_rows.cu",
+    "blend_fwd": "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd.cu",
+}
+# the __global__ function of each kernel, as torch.profiler names it
+DEVICE_NAMES = {
+    "stack": "stack_rows_kernel",
+    "expand": "expand_rows_kernel",
+    "interleave": "interleave_rows_kernel",
+    "blend_fwd": "blend_fwd_kernel",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = time.perf_counter() - self.t0
+        status = "ok" if exc_type is None else f"FAILED ({exc_type.__name__})"
+        log(f"[phase] {self.name}: {status} in {dt:.2f} s")
+        return False
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, dev, reps: int) -> float:
+    """Mean ms per call: CUDA events around `reps` calls after a warm-up
+    (a host clock on the CPU)."""
+    fn()
+    sync(dev)
+    if dev.type == "cuda":
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def make_params(cfg, n: int, seed: int):
+    """A stage-1 model as the JAX package's params dict of numpy arrays."""
+    from gaussianprediction_tpu_torch.data.synthetic import random_gaussians
+    from gaussianprediction_tpu_torch.models.gaussians import (
+        deform_mlp_sizes,
+    )
+    from gaussianprediction_tpu_torch.ops.mlp import init_mlp
+    from gaussianprediction_tpu_torch.utils.sh import rgb_to_sh
+
+    g = random_gaussians(n, seed=seed, scale_range=(-5.2, -3.8))
+    rng = np.random.default_rng(seed + 1)
+    k_rest = (cfg.model.sh_degree + 1) ** 2 - 1
+    params = {
+        "xyz": g["xyz"],
+        "features_dc": rgb_to_sh(g["colors"])[:, None, :],
+        "features_rest": (0.1 * rng.normal(size=(n, k_rest, 3))).astype(
+            np.float32),
+        "scaling": g["log_scales"],
+        "rotation": g["rotation"],
+        "opacity": g["opacity_logit"],
+        "motion_feature": (1e-3 * (2.0 * rng.random(
+            (n, cfg.model.feature_dim)) - 1.0)).astype(np.float32),
+        "df_mlp": init_mlp(rng, deform_mlp_sizes(cfg)),
+    }
+    return params, np.ones(n, bool)
+
+
+class Capture:
+    """Records the arguments the main path hands each kernel wrapper."""
+
+    def __init__(self):
+        from gaussianprediction_tpu_torch.ops import expand
+        from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+
+        self.targets = [(expand, "stack_rows"), (expand, "expand_emit"),
+                        (expand, "interleave_rows"),
+                        (rk, "rasterize_binned")]
+        self.args = {}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+
+            def wrapper(*a, _orig=orig, _name=name, **k):
+                self.args[_name] = (a, k)
+                return _orig(*a, **k)
+
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+        return False
+
+
+def check_kernels(args_by_name, dev, reps: int):
+    """Each kernel beside its plain version on the main path's inputs."""
+    from gaussianprediction_tpu_torch.ops import expand as E
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+
+    res = {}
+
+    # stack
+    (chans, *rest), kw = args_by_name["stack_rows"]
+    nch = kw.get("nch", rest[0] if rest else 16)
+    n = chans[0].shape[0]
+    out = E.stack_rows(chans, nch=nch)
+    ref = E.stack_rows_plain(chans, nch)
+    if not torch.equal(out, ref):
+        raise AssertionError("stack_rows kernel != plain")
+    zeros = [torch.zeros_like(chans[0]) for _ in range(nch - len(chans))]
+    res["stack"] = dict(
+        max_abs_err=float((out - ref).abs().max()),
+        ms=time_ms(lambda: E.stack_rows(chans, nch=nch), dev, reps),
+        plain_ms=time_ms(lambda: E.stack_rows_plain(chans, nch), dev, reps),
+        library_ms=time_ms(lambda: torch.stack(list(chans) + zeros), dev,
+                           reps),
+        bytes=(len(chans) + nch) * n * 4, ops=0,
+    )
+
+    # expand (raw and fused emit)
+    (permat, offs, total, cap, gx, sentinel), _ = args_by_name["expand_emit"]
+    out = E.expand_emit(permat, offs, total, cap, gx, sentinel)
+    raw_ref = E.expand_rows_raw_plain(permat, offs, total, cap)
+    ref = E.emit_from_raw(raw_ref, total, gx, sentinel)
+    if not torch.equal(out, ref):
+        raise AssertionError("expand kernel (emit) != plain")
+    if not torch.equal(E.expand_rows_raw(permat, offs, total, cap), raw_ref):
+        raise AssertionError("expand kernel (raw) != plain")
+    # slots past the last Gaussian's start belong to it, as in the kernel
+    counts = torch.diff(offs, append=offs.new_tensor([cap])).to(torch.int64)
+    lib = lambda: torch.repeat_interleave(permat, counts, dim=1,  # noqa: E731
+                                          output_size=cap)
+    if not torch.equal(lib(), raw_ref):
+        raise AssertionError("repeat_interleave != expand_rows_raw")
+    # The emit needs rows 0-14 of each Gaussian that owns a live slot (row
+    # 15 is pad) and only rw (row 13) of the others, offs, total; it
+    # writes 12 rows of cap slots.
+    ng = permat.shape[1]
+    n_live = int(((permat[13] > 0.5) & (offs < total)).sum())
+    res["expand"] = dict(
+        max_abs_err=float((out - ref).abs().max()),
+        ms=time_ms(lambda: E.expand_emit(permat, offs, total, cap, gx,
+                                         sentinel), dev, reps),
+        plain_ms=time_ms(lambda: E.emit_from_raw(
+            E.expand_rows_raw_plain(permat, offs, total, cap), total, gx,
+            sentinel), dev, reps),
+        library_ms=time_ms(lib, dev, reps),
+        bytes=(15 * n_live + (ng - n_live) + ng + 1) * 4
+        + E.N_EMIT * cap * 4, ops=0,
+    )
+
+    # interleave
+    (chans,), _ = args_by_name["interleave_rows"]
+    n = chans[0].shape[0]
+    out = E.interleave_rows(chans)
+    ref = E.interleave_rows_plain(chans)
+    if not torch.equal(out, ref):
+        raise AssertionError("interleave_rows kernel != plain")
+    valid = (chans[10] >= 0).to(torch.float32)
+    zeros = [torch.zeros_like(valid) for _ in range(4)]
+    res["interleave"] = dict(
+        max_abs_err=float((out - ref).abs().max()),
+        ms=time_ms(lambda: E.interleave_rows(chans), dev, reps),
+        plain_ms=time_ms(lambda: E.interleave_rows_plain(chans), dev, reps),
+        library_ms=time_ms(lambda: torch.stack(list(chans) + [valid] + zeros),
+                           dev, reps),
+        bytes=(11 + 16) * n * 4, ops=0,
+    )
+
+    # forward blend
+    (inst, ts, te, gx, gy, with_tidx), _ = args_by_name["rasterize_binned"]
+    out = rk.rasterize_binned(inst, ts, te, gx, gy, with_tidx)
+    aux = {}
+    t0 = time.perf_counter()
+    ref = rk.rasterize_binned_plain(inst, ts, te, gx, gy, with_tidx, aux=aux)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out[..., :5] - ref[..., :5]).abs()
+    err_rgbt = float(err[..., [0, 1, 2, 4]].max())
+    err_z = float(err[..., 3].max())
+    wmax, w2 = ref[..., rk.O_WMAX], aux["w2"]
+    clear = (wmax - w2) > 1e-6 * wmax
+    tidx_bad = int(((out[..., rk.O_GID] != ref[..., rk.O_GID])
+                    & clear).sum())
+    log(f"blend: max |err| rgb,T {err_rgbt:.3e}  depth {err_z:.3e}  "
+        f"tidx mismatches (clear top) {tidx_bad}  pairs {aux['pairs']}  "
+        f"flops {aux['flops']}  instances read {aux['instances']}")
+    if not (err_rgbt <= 2e-5 and err_z <= 2e-4 and tidx_bad == 0):
+        raise AssertionError("blend kernel disagrees with its plain version")
+    T = gx * gy
+    res["blend_fwd"] = dict(
+        max_abs_err=max(err_rgbt, err_z),
+        ms=time_ms(lambda: rk.rasterize_binned(inst, ts, te, gx, gy,
+                                               with_tidx), dev, reps),
+        plain_ms=plain_ms, library_ms=None,
+        bytes=aux["instances"] * 12 * 4 + 2 * T * 4 + T * rk.PIX * 8 * 4,
+        ops=aux["flops"],
+    )
+    for name, r in res.items():
+        t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
+        t_ops = r["ops"] / F32_PEAK * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        log(f"kernel {name}: max |err| {r['max_abs_err']:.3e}  "
+            f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  "
+            f"library_ms {r['library_ms']}")
+    return res
+
+
+def oracle_check(dev, seed: int) -> None:
+    """A small scene through the port's render (kernels on the card)
+    against the torch oracle, with the JAX package's test tolerances."""
+    from gaussianprediction_tpu_torch.data.synthetic import (
+        orbit_camera, random_gaussians,
+    )
+    from gaussianprediction_tpu_torch.ops import projection as PJ
+    from gaussianprediction_tpu_torch.ops.rasterize import render
+    from gaussianprediction_tpu_torch.ops.rasterize_reference import (
+        rasterize_pixels_reference,
+    )
+
+    W = H = 64
+    g = random_gaussians(300, seed=seed, scale_range=(-3.4, -2.0))
+    cam = orbit_camera(0.5, width=W, height=H).to_device_dict(dev)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+    op = torch.sigmoid(t["opacity_logit"][:, 0])
+    scal = torch.exp(t["log_scales"])
+    rot = t["rotation"] / torch.linalg.norm(t["rotation"], dim=-1,
+                                            keepdim=True)
+    bg = torch.zeros(3, device=dev)
+    out = render(t["xyz"], scal, rot, op, None, cam, W, H, bg,
+                 colors_precomp=t["colors"], capacity_multiplier=24)
+    proj = PJ.project_from_params(t["xyz"], scal, rot, cam, W, H,
+                                  opacity=op)
+    rgb, depth, alpha, _ = rasterize_pixels_reference(proj, t["colors"], op,
+                                                      bg, W, H)
+    e_rgb = float((out["render"] - rgb).abs().max())
+    e_z = float((out["depth"] - depth).abs().max())
+    e_a = float((out["alpha"] - alpha).abs().max())
+    log(f"oracle: n_dropped {int(out['n_dropped'])}  max |err| rgb {e_rgb:.3e}"
+        f"  depth {e_z:.3e}  alpha {e_a:.3e}")
+    if int(out["n_dropped"]) != 0 or e_rgb > 2e-5 or e_a > 2e-5 or e_z > 2e-4:
+        raise AssertionError("render disagrees with the oracle")
+
+
+def profile_view(fn, cam, t, dev) -> dict:
+    """Device time by kernel over three renders of one view, and the
+    device's busy share of that window (torch.profiler; CUPTI). Only
+    device-side events are summed: an operator's own row would count its
+    kernels a second time. Returns each ported kernel's mean device ms per
+    launch inside the render."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(cam, t)
+    sync(dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(cam, t)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 3e3, e.count / 3, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile: wall {wall_ms:.3f} ms per view, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in rows):.0f} kernels per view")
+    for ms, count, key in rows[:15]:
+        log(f"  {ms:9.4f} ms  x{count:<5.1f} {key[:100]}")
+    device_ms = {}
+    for name, fname in DEVICE_NAMES.items():
+        hits = [(ms, count) for ms, count, key in rows if fname in key]
+        launches = sum(c for _, c in hits)
+        device_ms[name] = (sum(m for m, _ in hits) / launches if launches
+                           else None)
+        log(f"  kernel {name}: device ms per launch {device_ms[name]}")
+    return device_ms
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rehearse", action="store_true",
+                    help="CPU, 2k Gaussians, 128x128, plain versions")
+    args = ap.parse_args()
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.convert import state_from_params
+    from gaussianprediction_tpu_torch.data.synthetic import orbit_camera
+    from gaussianprediction_tpu_torch.eval.render import (
+        make_render_fn, render_set,
+    )
+    from gaussianprediction_tpu_torch.ops.instance_stream import (
+        probe_slot_need,
+    )
+    from gaussianprediction_tpu_torch.train.step import (
+        deform_for_stage, stage_of,
+    )
+
+    if args.rehearse:
+        dev, n, size, reps = torch.device("cpu"), 2_000, 128, 2
+        smi = "rehearse on the CPU"
+    else:
+        if not torch.cuda.is_available():
+            log("CUDA is not available: chip_smoke.py needs a CUDA card "
+                "(use --rehearse on the CPU)")
+            return 2
+        dev, n, size, reps = torch.device("cuda"), 200_000, 800, 20
+        with Phase("nvidia-smi"):
+            smi = smi_line()
+            log(smi)
+            log(f"python {sys.version.split()[0]}, torch {torch.__version__},"
+                f" CUDA {torch.version.cuda}")
+    if not args.rehearse:
+        from gaussianprediction_tpu_torch.kernels import build
+
+        with Phase("build kernels"):
+            build.library()
+            info = build.build_info
+            log(f"build: {info['seconds']:.2f} s (cached {info['cached']}) "
+                f"-> {info['path']}")
+            for line in info["log"].splitlines():
+                if "registers" in line or "smem" in line or \
+                        "Compiling entry" in line or "spill" in line:
+                    log("  " + line.strip())
+
+    cfg = get_preset("dnerf")
+    iteration = 20_000            # stage 1, past xyz_noise_iteration
+    assert stage_of(cfg, iteration) == 1
+    with Phase("model"):
+        params, alive = make_params(cfg, n, args.seed)
+        state = state_from_params(params, alive, device=dev)
+        views = [
+            orbit_camera(0.5 + 1.2 * i, width=size, height=size,
+                         time=i / 4.0, uid=i)
+            for i in range(5)
+        ]
+        need = 0
+        with torch.no_grad():
+            for v in views:
+                t = torch.tensor(v.time, dtype=torch.float32, device=dev)
+                d = deform_for_stage(state.params, cfg, state, t, iteration,
+                                     None, 1)
+                need = max(need, int(probe_slot_need(
+                    d.xyz, d.scaling, d.rotation, d.opacity,
+                    v.to_device_dict(dev), size, size, alive=state.alive)))
+        cfg.model.capacity_multiplier = max(2, -(-int(need * 1.2) // n))
+        log(f"model: {n} Gaussians, {size}x{size}, SH {cfg.model.sh_degree}, "
+            f"MLP d={cfg.model.d} w={cfg.model.w}, slot need {need}, "
+            f"capacity_multiplier {cfg.model.capacity_multiplier}")
+
+    bg = np.zeros(3, np.float32)
+    fn = make_render_fn(state, cfg, iteration, size, size, bg,
+                        cfg.model.sh_degree)
+    with Phase("kernels vs plain versions (first view)"):
+        t0 = torch.tensor(views[0].time, dtype=torch.float32, device=dev)
+        with Capture() as cap:
+            fn(views[0].to_device_dict(dev), t0)
+        sync(dev)
+        with torch.no_grad():
+            res = check_kernels(cap.args, dev, reps)
+
+    with Phase("small scene vs oracle"):
+        with torch.no_grad():
+            oracle_check(dev, args.seed)
+
+    with Phase("render_set (5 views)"):
+        stats = {}
+        kernels.reset_launch_counts()
+        renders, _, fps = render_set(state, cfg, iteration, views, bg,
+                                     stats=stats)
+        sync(dev)
+        launches = dict(kernels.launch_counts)
+        log(f"render_set: ms per view {stats['ms']}  fps {fps:.2f}  "
+            f"n_dropped {stats['n_dropped']}  launches {launches}")
+        for i, img in enumerate(renders):
+            if img.shape != (size, size, 3) or not np.isfinite(img).all():
+                raise AssertionError(f"view {i}: bad image")
+            if float(img.max() - img.min()) <= 0.0:
+                raise AssertionError(f"view {i}: constant image")
+        if any(d != 0 for d in stats["n_dropped"]):
+            raise AssertionError("n_dropped != 0")
+        if not args.rehearse:
+            missing = [k for k in REPLACES if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched: {missing}")
+        cam0 = views[0].to_device_dict(dev)
+        a = fn(cam0, t0)
+        b = fn(cam0, t0)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("one view rendered twice differs")
+
+    with Phase("profile (one view, 3 renders)"):
+        device_ms = profile_view(fn, cam0, t0, dev)
+
+    line = {"kernels": [
+        {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": device_ms[name],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        }
+        for name, r in res.items()
+    ]}
+    log(json.dumps(line))
+    log(smi)
+    if args.rehearse:
+        log("rehearsal done (no result line off the card)")
+        return 0
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

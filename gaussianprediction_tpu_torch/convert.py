@@ -1,0 +1,80 @@
+"""Carry the JAX package's Gaussian state across to the port.
+
+state_from_params takes `GaussianState.params` as a nested dict of numpy
+arrays (xyz, features_dc, features_rest, scaling, rotation, opacity,
+motion_feature, df_mlp=[{w, b}, ...], ...) or with the flattened
+"a/b/0/w" names of gaussianprediction_tpu/train/checkpoint.py:_flatten,
+plus the `alive` mask, and returns the port's GaussianState on a device.
+load_jax_checkpoint reads such a .npz checkpoint directly. Arrays keep the
+JAX layout (the MLP's w is [fan_in, fan_out]), so nothing is transposed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from gaussianprediction_tpu_torch.device import resolve_device
+from gaussianprediction_tpu_torch.models.gaussians import GaussianState
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"df_mlp/0/w": a, "xyz": b} -> {"df_mlp": [{"w": a}], "xyz": b};
+    a path component of digits indexes a list."""
+    root: Dict[str, Any] = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def _to_tensor(x, device):
+    arr = np.asarray(x)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(np.ascontiguousarray(arr), device=device)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return _to_tensor(tree, device)
+
+
+def state_from_params(params: Dict[str, Any], alive, kpt_alive=None,
+                      device=None) -> GaussianState:
+    if any("/" in k for k in params):
+        params = unflatten(params)
+    dev = resolve_device(device)
+    return GaussianState(
+        params=_tree_to(params, dev),
+        alive=_to_tensor(np.asarray(alive, bool), dev),
+        kpt_alive=(None if kpt_alive is None
+                   else _to_tensor(np.asarray(kpt_alive, bool), dev)),
+    )
+
+
+def load_jax_checkpoint(path: str, device=None):
+    """A JAX package .npz checkpoint -> (GaussianState, iteration)."""
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    params = {k[len("params/"):]: v for k, v in flat.items()
+              if k.startswith("params/")}
+    state = state_from_params(params, flat["meta/alive"],
+                              flat.get("meta/kpt_alive"), device)
+    return state, int(flat["meta/iteration"])

@@ -1,0 +1,144 @@
+"""End-to-end parity of the port's stage-0/1 render with the JAX package.
+
+A `dnerf`-preset model (2k Gaussians, SH degree 3, the d=4 w=256 deform
+MLP) is made with numpy, carried into the port by convert.py, and rendered
+at 128x128 by both packages: render_at_time at stage 0, render_set at
+stage 1 (iteration 20000, past xyz_noise_iteration, so no noise is drawn).
+Tolerances are the rasterizer tests' own, rgb and alpha 2e-5, depth 2e-4:
+the deform MLP, projection and SH differ from XLA's only in the last ulps,
+and the blend follows the oracle's CUDA semantics where the Pallas kernel
+scans (ulp-level association). Integer outputs (radii, n_dropped,
+n_instances) are held equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import jax_state, n, stage1_params, t
+
+from gaussianprediction_tpu import config as jcfg
+from gaussianprediction_tpu.data.synthetic import orbit_camera
+from gaussianprediction_tpu.eval import render as jeval
+from gaussianprediction_tpu.train import step as jstep
+from gaussianprediction_tpu.train.checkpoint import save_checkpoint
+from gaussianprediction_tpu_torch import config as tcfg
+from gaussianprediction_tpu_torch.convert import (
+    load_jax_checkpoint, state_from_params,
+)
+from gaussianprediction_tpu_torch.data.synthetic import (
+    orbit_camera as torbit,
+)
+from gaussianprediction_tpu_torch.eval import render as teval
+from gaussianprediction_tpu_torch.ops import rasterize as TR
+from gaussianprediction_tpu_torch.train import step as tstep
+
+W = H = 128
+N = 2000
+
+
+@pytest.fixture(scope="module")
+def model():
+    tc = tcfg.get_preset("dnerf")
+    params, alive = stage1_params(tc, N, seed=11)
+    return params, alive
+
+
+def _close(ours, ref):
+    np.testing.assert_allclose(n(ours["render"]), n(ref["render"]),
+                               atol=2e-5, rtol=0)
+    np.testing.assert_allclose(n(ours["alpha"]), n(ref["alpha"]), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(n(ours["depth"]), n(ref["depth"]), atol=2e-4,
+                               rtol=0)
+
+
+def test_render_at_time_stage0(model):
+    params, alive = model
+    jc, tc = jcfg.get_preset("dnerf"), tcfg.get_preset("dnerf")
+    it = 100
+    assert tstep.stage_of(tc, it) == 0
+    js = jax_state(params, alive)
+    ts = state_from_params(params, alive, device="cpu")
+    view = orbit_camera(0.9, width=W, height=H, time=0.0)
+    bg = np.array([0.0, 0.5, 1.0], np.float32)
+
+    @jax.jit
+    def jfn(cam):
+        pkg, _ = jstep.render_at_time(
+            js.params, jc, js, cam, jnp.float32(0.0), jnp.int32(it),
+            jax.random.PRNGKey(0), 0, W, H, jnp.asarray(bg), 3,
+            interpret=True, need_tidx=True)
+        return {k: pkg[k] for k in ("render", "depth", "alpha", "tidx",
+                                    "radii", "n_dropped", "n_instances")}
+
+    ref = jfn(view.to_device_dict())
+    tview = torbit(0.9, width=W, height=H, time=0.0)
+    ours, _ = tstep.render_at_time(
+        ts.params, tc, ts, tview.to_device_dict("cpu"), torch.tensor(0.0),
+        it, None, 0, W, H, t(bg), 3, need_tidx=True)
+    _close(ours, ref)
+    np.testing.assert_array_equal(n(ours["radii"]), n(ref["radii"]))
+    assert int(ours["n_dropped"]) == int(ref["n_dropped"]) == 0
+    assert int(ours["n_instances"]) == int(ref["n_instances"])
+    assert np.mean(n(ours["tidx"]) == n(ref["tidx"])) > 0.99
+    assert (n(ours["radii"])[~alive] == 0).all()
+
+
+def test_render_set_stage1(model):
+    params, alive = model
+    jc, tc = jcfg.get_preset("dnerf"), tcfg.get_preset("dnerf")
+    it = 20_000
+    assert tstep.stage_of(tc, it) == 1
+    js = jax_state(params, alive)
+    ts = state_from_params(params, alive, device="cpu")
+    times = (0.1, 0.8)
+    jviews = [orbit_camera(0.3 + 2.0 * i, width=W, height=H, time=tt, uid=i)
+              for i, tt in enumerate(times)]
+    tviews = [torbit(0.3 + 2.0 * i, width=W, height=H, time=tt, uid=i)
+              for i, tt in enumerate(times)]
+    bg = np.zeros(3, np.float32)
+    ref, _, _ = jeval.render_set(js, jc, it, jviews, bg, interpret=True)
+    stats = {}
+    ours, gts, fps = teval.render_set(ts, tc, it, tviews, bg, stats=stats)
+    assert gts == [] and fps > 0
+    assert stats["n_dropped"] == [0, 0] and len(stats["ms"]) == 2
+    for o, r in zip(ours, ref):
+        assert o.shape == (H, W, 3) and o.dtype == np.float32
+        np.testing.assert_allclose(o, np.asarray(r), atol=2e-5, rtol=0)
+    # the two times give different images: the deformation is live
+    assert np.abs(ours[0] - ours[1]).max() > 1e-3
+    rgb, depth, tidx = teval.make_render_fn(ts, tc, it, W, H, bg, 3)(
+        tviews[0].to_device_dict("cpu"), torch.tensor(times[0]))
+    assert torch.equal(torch.clamp(rgb, 0, 1), torch.from_numpy(ours[0]))
+
+
+def test_convert_loads_jax_checkpoint(model, tmp_path):
+    params, alive = model
+    js = jax_state(params, alive)
+    path = str(tmp_path / "chkpnt.npz")
+    save_checkpoint(path, js, {}, 1234, jax.random.PRNGKey(0))
+    state, iteration = load_jax_checkpoint(path, device="cpu")
+    assert iteration == 1234
+    np.testing.assert_array_equal(n(state.alive), alive)
+    assert len(state.params["df_mlp"]) == len(params["df_mlp"]) == 5
+    for a, b in zip(state.params["df_mlp"], params["df_mlp"]):
+        np.testing.assert_array_equal(n(a["w"]), b["w"])
+        np.testing.assert_array_equal(n(a["b"]), b["b"])
+    for k in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+              "opacity", "motion_feature"):
+        assert state.params[k].dtype == torch.float32
+        np.testing.assert_array_equal(n(state.params[k]), params[k])
+
+
+def test_unported_paths_raise():
+    g = {k: torch.zeros(4, d) for k, d in (("xyz", 3), ("s", 3), ("q", 4))}
+    cam = torbit(0.1, width=32, height=32).to_device_dict("cpu")
+    for kw in ({"tile_band": (0, 1)}, {"fast_binning": False}):
+        with pytest.raises(NotImplementedError):
+            TR.render(g["xyz"], g["s"], g["q"], torch.ones(4), None, cam, 32,
+                      32, torch.zeros(3), colors_precomp=g["xyz"], **kw)
+    with pytest.raises(NotImplementedError):
+        tstep.deform_for_stage({}, tcfg.get_preset("dnerf"), None,
+                               torch.tensor(0.0), 40_000, None, 2)
