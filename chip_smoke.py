@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stage-1 eval render on one NVIDIA H100.
+"""Drive the PyTorch port's stage-1 eval render and its stage-0/1 training
+step on one NVIDIA H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -22,19 +23,41 @@ the run with a non-zero exit and no result line):
      n_dropped == 0, every kernel launched, one view rendered twice
      bit-identical; ms per view from CUDA events;
   7. a torch.profiler breakdown of one view's device time;
-  8. a `kernels` JSON line, the nvidia-smi line, and as the last line
+  8. training at the same width (200k live Gaussians in the preset's padded
+     capacity): the target is the port's render of a second random model
+     (--seed + 1) at the first view. The first training step (stage 0)
+     runs with its kernel inputs captured, and the backward blend, the
+     cumsum_channels and cumsum_rows scans are held to their plain versions
+     on them: blend_bwd rows 0-9 within 1e-5 of each row's largest
+     magnitude, the columns beyond it counted and held to 0.1% (done
+     latches that flip on an ulp), two launches bit-identical; the scans
+     within 64 * 2^-24 * cumsum(|x|);
+  9. 12 stage-1 steps from iteration 20000 with the counts set to 0 just
+     before: finite loss, grads and params, n_dropped == 0, blend_bwd once a
+     step, the loss falling from the first step to the last; ms per step
+     from CUDA events (median of the steps after the first); one step run
+     twice from the same state bit-identical (else the op that differs is
+     named); one densify_and_prune_clone_split + prune event, then one more
+     step;
+ 10. one step with GPT_BWD_REDUCE=pallas (cumsum_channels) and one with
+     batched (interleave + cumsum_rows), each against serial on the same
+     state: the per-Gaussian gradient within f32 cumsum roundoff;
+ 11. a torch.profiler breakdown of one training step;
+ 12. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
   python3 chip_smoke.py                # on a machine with one CUDA card
   python3 chip_smoke.py --rehearse     # the same phases on the CPU at 2k
-                                       # Gaussians and 128x128, plain
-                                       # versions, no result line
+                                       # Gaussians and 128x128 (3 stage-1
+                                       # steps), plain versions, no result
+                                       # line
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,6 +73,9 @@ REPLACES = {
     "expand": "gaussianprediction_tpu/ops/expand_pallas.py:298",
     "interleave": "gaussianprediction_tpu/ops/expand_pallas.py:355",
     "blend_fwd": "gaussianprediction_tpu/ops/rasterize_pallas.py:337",
+    "blend_bwd": "gaussianprediction_tpu/ops/rasterize_pallas.py:448",
+    "cumsum_channels": "gaussianprediction_tpu/ops/scan_pallas.py:84",
+    "cumsum_rows": "gaussianprediction_tpu/ops/scan_pallas.py:49",
 }
 SOURCES = {
     "stack": "gaussianprediction_tpu_torch/kernels/csrc/stack_rows.cu",
@@ -57,14 +83,25 @@ SOURCES = {
     "interleave":
         "gaussianprediction_tpu_torch/kernels/csrc/interleave_rows.cu",
     "blend_fwd": "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd.cu",
+    "blend_bwd": "gaussianprediction_tpu_torch/kernels/csrc/blend_bwd.cu",
+    "cumsum_channels":
+        "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
+    "cumsum_rows": "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
 }
-# the __global__ function of each kernel, as torch.profiler names it
+# the __global__ functions of each kernel, as torch.profiler names them
+# (the scan is three: block sums, their scan, the block scans)
+SCAN_FUNCS = ("block_sums_kernel", "scan_sums_kernel", "scan_rows_kernel")
 DEVICE_NAMES = {
-    "stack": "stack_rows_kernel",
-    "expand": "expand_rows_kernel",
-    "interleave": "interleave_rows_kernel",
-    "blend_fwd": "blend_fwd_kernel",
+    "stack": ("stack_rows_kernel",),
+    "expand": ("expand_rows_kernel",),
+    "interleave": ("interleave_rows_kernel",),
+    "blend_fwd": ("blend_fwd_kernel",),
+    "blend_bwd": ("blend_bwd_kernel",),
+    "cumsum_channels": SCAN_FUNCS,
+    "cumsum_rows": SCAN_FUNCS,
 }
+FWD_KERNELS = ("stack", "expand", "interleave", "blend_fwd")
+EPS32 = 2.0 ** -24
 
 
 def log(msg: str) -> None:
@@ -148,16 +185,18 @@ def make_params(cfg, n: int, seed: int):
 
 
 class Capture:
-    """Records the arguments the main path hands each kernel wrapper."""
+    """Records the arguments the main path hands each kernel wrapper (the
+    last call of each), and what it returned."""
 
-    def __init__(self):
+    def __init__(self, targets=None):
         from gaussianprediction_tpu_torch.ops import expand
         from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
 
-        self.targets = [(expand, "stack_rows"), (expand, "expand_emit"),
-                        (expand, "interleave_rows"),
-                        (rk, "rasterize_binned")]
+        self.targets = targets or [
+            (expand, "stack_rows"), (expand, "expand_emit"),
+            (expand, "interleave_rows"), (rk, "rasterize_binned")]
         self.args = {}
+        self.out = {}
 
     def __enter__(self):
         self.saved = []
@@ -167,7 +206,8 @@ class Capture:
 
             def wrapper(*a, _orig=orig, _name=name, **k):
                 self.args[_name] = (a, k)
-                return _orig(*a, **k)
+                self.out[_name] = _orig(*a, **k)
+                return self.out[_name]
 
             setattr(mod, name, wrapper)
         return self
@@ -282,6 +322,13 @@ def check_kernels(args_by_name, dev, reps: int):
         bytes=aux["instances"] * 12 * 4 + 2 * T * 4 + T * rk.PIX * 8 * 4,
         ops=aux["flops"],
     )
+    add_bounds(res)
+    return res
+
+
+def add_bounds(res: dict) -> None:
+    """bound_ms: the larger of the bytes over the HBM rate and the f32
+    operations over the f32 peak, from this run's inputs."""
     for name, r in res.items():
         t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
         t_ops = r["ops"] / F32_PEAK * 1e3
@@ -291,7 +338,6 @@ def check_kernels(args_by_name, dev, reps: int):
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  "
             f"library_ms {r['library_ms']}")
-    return res
 
 
 def oracle_check(dev, seed: int) -> None:
@@ -330,23 +376,23 @@ def oracle_check(dev, seed: int) -> None:
         raise AssertionError("render disagrees with the oracle")
 
 
-def profile_view(fn, cam, t, dev) -> dict:
-    """Device time by kernel over three renders of one view, and the
-    device's busy share of that window (torch.profiler; CUPTI). Only
-    device-side events are summed: an operator's own row would count its
-    kernels a second time. Returns each ported kernel's mean device ms per
-    launch inside the render."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(run, dev, label: str, reps: int = 3, top: int = 15) -> dict:
+    """Device time by kernel over `reps` calls of run() and the device's
+    busy share of that window (torch.profiler; CUPTI). Only device-side
+    events are summed: an operator's own row would count its kernels a
+    second time. Returns each ported kernel's mean device ms per launch
+    (the sum over its __global__ functions; None when not launched)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    fn(cam, t)
+    run()
     sync(dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts, acc_events=True) as prof:
+    with tprofile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            fn(cam, t)
+        for _ in range(reps):
+            run()
         sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -355,22 +401,352 @@ def profile_view(fn, cam, t, dev) -> dict:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
-            rows.append((us / 3e3, e.count / 3, e.key))
+            rows.append((us / (reps * 1e3), e.count / reps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile: wall {wall_ms:.3f} ms per view, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
-        f"{sum(r[1] for r in rows):.0f} kernels per view")
-    for ms, count, key in rows[:15]:
+    log(f"profile {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}"
+        f"%), {sum(r[1] for r in rows):.0f} kernels")
+    for ms, count, key in rows[:top]:
         log(f"  {ms:9.4f} ms  x{count:<5.1f} {key[:100]}")
     device_ms = {}
-    for name, fname in DEVICE_NAMES.items():
-        hits = [(ms, count) for ms, count, key in rows if fname in key]
-        launches = sum(c for _, c in hits)
-        device_ms[name] = (sum(m for m, _ in hits) / launches if launches
-                           else None)
-        log(f"  kernel {name}: device ms per launch {device_ms[name]}")
+    for name, funcs in DEVICE_NAMES.items():
+        per = []
+        for f in funcs:
+            hits = [(ms, c) for ms, c, key in rows if f in key]
+            n_launch = sum(c for _, c in hits)
+            if n_launch:
+                per.append(sum(m for m, _ in hits) / n_launch)
+        device_ms[name] = sum(per) if len(per) == len(funcs) else None
     return device_ms
+
+
+def pad_to_capacity(params, alive, C: int):
+    """A params dict of n live rows padded to C rows with dead Gaussians
+    (scale -10, opacity -15, identity rotation, zeros elsewhere), as the
+    JAX package's capacity padding leaves free slots."""
+    n = alive.shape[0]
+    out = {}
+    for k, v in params.items():
+        if k == "df_mlp":
+            out[k] = v
+            continue
+        pad = np.zeros((C - n,) + v.shape[1:], np.float32)
+        if k == "scaling":
+            pad[:] = -10.0
+        elif k == "opacity":
+            pad[:] = -15.0
+        elif k == "rotation":
+            pad[:, 0] = 1.0
+        out[k] = np.concatenate([v, pad])
+    return out, np.concatenate([alive, np.zeros(C - n, bool)])
+
+
+def check_train_kernels(cap, dev, reps: int):
+    """The backward blend and both scans beside their plain versions on the
+    first training step's inputs."""
+    from gaussianprediction_tpu_torch.ops import expand as E
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+    from gaussianprediction_tpu_torch.ops import scan
+
+    res = {}
+    (inst, ts, te, gx, gy, dpix), _ = cap.args["rasterize_binned_bwd"]
+    a = rk.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix)
+    b = rk.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix)
+    sync(dev)
+    if not torch.equal(a, b):
+        raise AssertionError("blend_bwd: two launches differ")
+    aux = {}
+    t0 = time.perf_counter()
+    ref = rk.rasterize_binned_bwd_plain(inst, ts, te, gx, gy, dpix, aux=aux)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (a[:10] - ref[:10]).abs()
+    scale = ref[:10].abs().amax(dim=1, keepdim=True)
+    bad = (err > 1e-5 * scale).any(dim=0)
+    live = (ref[:10] != 0).any(dim=0) | (a[:10] != 0).any(dim=0)
+    n_bad, n_live = int(bad.sum()), int(live.sum())
+    err_in = float(torch.where(bad[None], 0.0, err).max())
+    log(f"blend_bwd: bit-identical across 2 launches; columns with a row "
+        f"beyond 1e-5 of the row's max |grad| {n_bad} of {n_live} live; "
+        f"max |err| {float(err.max()):.3e} (within tolerance {err_in:.3e});"
+        f" pairs {aux['pairs']} flops {aux['flops']} instances read "
+        f"{aux['instances']}")
+    if a[10:].any() or n_bad > 1e-3 * max(n_live, 1):
+        raise AssertionError("blend_bwd disagrees with its plain version")
+    T = gx * gy
+    res["blend_bwd"] = dict(
+        max_abs_err=float(err.max()),
+        ms=time_ms(lambda: rk.rasterize_binned_bwd(inst, ts, te, gx, gy,
+                                                   dpix), dev, reps),
+        plain_ms=plain_ms, library_ms=None,
+        # instances read (12 channels), bounds, dpix (5 channels), the 10
+        # gradient rows of the instances read
+        bytes=aux["instances"] * (12 + 10) * 4 + 2 * T * 4
+        + T * rk.PIX * 5 * 4, ops=aux["flops"],
+    )
+
+    # the scans, on the first step's cotangent rows sorted by gid
+    (gid_row, kept, d_inst), _ = cap.args["build_instances_bwd"]
+    gid = gid_row.to(torch.int32)
+    order = torch.sort(gid, stable=True).indices
+    srt = d_inst[:10].index_select(1, order)
+    chans = [srt[c] for c in range(10)]
+    P = srt.shape[1]
+    mat = E.interleave_rows(chans + [gid.index_select(0, order).to(
+        torch.float32)])
+    for name, fn, plain, x, rows_read in (
+            ("cumsum_channels", lambda: scan.cumsum_channels(chans),
+             lambda: scan.cumsum_channels_plain(chans),
+             scan.cumsum_channels_plain(chans) * 0 + torch.cat(
+                 [srt, srt.new_zeros((6, P))]), 10),
+            ("cumsum_rows", lambda: scan.cumsum_rows(mat),
+             lambda: scan.cumsum_rows_plain(mat), mat, 16)):
+        out, ref = fn(), plain()
+        sync(dev)
+        tol = 64 * EPS32 * torch.cumsum(x.abs(), dim=1)
+        err = (out - ref).abs()
+        n_out = int((err > tol).sum())
+        rel = float((err / torch.cumsum(x.abs(), dim=1).clamp(
+            min=1e-30)).max())
+        log(f"{name}: max |err| {float(err.max()):.3e}, max |err| / "
+            f"cumsum(|x|) {rel:.3e}, {n_out} elements beyond 64 * 2^-24 * "
+            f"cumsum(|x|); deterministic {torch.equal(out, fn())}")
+        if n_out:
+            raise AssertionError(f"{name} disagrees with torch.cumsum")
+        res[name] = dict(
+            max_abs_err=float(err.max()), ms=time_ms(fn, dev, reps),
+            plain_ms=time_ms(plain, dev, reps),
+            library_ms=time_ms(lambda x=x: torch.cumsum(x, dim=1), dev,
+                               reps),
+            bytes=(rows_read + 16) * P * 4, ops=0,
+        )
+    add_bounds(res)
+    return res
+
+
+def finite_tree(tree) -> bool:
+    from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
+
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
+
+
+def diagnose_nondeterminism(run) -> str:
+    """Run the step twice with every kernel wrapper's and the stream
+    reduction's outputs captured; name the first that differs."""
+    from gaussianprediction_tpu_torch.ops import expand as E
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+
+    targets = [(E, "stack_rows"), (E, "expand_emit"),
+               (E, "interleave_rows"), (rk, "rasterize_binned"),
+               (rk, "rasterize_binned_bwd"), (IS, "build_instances_bwd")]
+    outs = []
+    for _ in range(2):
+        with Capture(targets) as cap:
+            metrics = run()[2]
+        outs.append((cap.out, metrics["grads"]))
+    for _, name in targets:
+        if not torch.equal(outs[0][0][name], outs[1][0][name]):
+            return name
+    for key in outs[0][1]:
+        from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
+
+        if not all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(outs[0][1][key]), tree_leaves(outs[1][1][key]))):
+            return f"the autograd backward into {key}"
+    return "none found"
+
+
+def train_phases(cfg, dev, n: int, size: int, seed: int, views, bg,
+                 rehearse: bool, reps: int):
+    """Phases 8-11. Returns (res, launches, device_ms) for the kernels
+    line: the kernel checks, each kernel's launch count from the run of
+    its path, and each kernel's device ms per launch in a profiled step."""
+    import copy
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.convert import state_from_params
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+    from gaussianprediction_tpu_torch.ops.instance_stream import (
+        probe_slot_need,
+    )
+    from gaussianprediction_tpu_torch.train import densify as DN
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.step import (
+        deform_for_stage, make_train_step, render_at_time, stage_of,
+    )
+
+    cfg = copy.deepcopy(cfg)
+    it0, it1 = 500, 20_000
+    assert stage_of(cfg, it0) == 0 and stage_of(cfg, it1) == 1
+    nsteps = 3 if rehearse else 12
+    extent = 1.3                       # the random scene's half width
+    sh = cfg.model.sh_degree
+    C = n + 512 if rehearse else cfg.model.padded_capacity()
+    view = views[0]
+    cam = view.to_device_dict(dev)
+    t = torch.tensor(view.time, dtype=torch.float32, device=dev)
+    bg_t = torch.as_tensor(bg, device=dev)
+    gen = lambda: torch.Generator(dev).manual_seed(seed)  # noqa: E731
+
+    with Phase("training set-up"):
+        params, alive = pad_to_capacity(*make_params(cfg, n, seed), C)
+        state = state_from_params(params, alive, device=dev)
+        opt = O.init_adam(state.params)
+        gstate = state_from_params(*make_params(cfg, n, seed + 1),
+                                   device=dev)
+        need = 0
+        with torch.no_grad():
+            for st, it, stage in ((state, it0, 0), (state, it1, 1),
+                                  (gstate, it1, 1)):
+                d = deform_for_stage(st.params, cfg, st, t, it, None, stage)
+                need = max(need, int(probe_slot_need(
+                    d.xyz, d.scaling, d.rotation, d.opacity, cam, size,
+                    size, alive=st.alive)))
+            cfg.model.capacity_multiplier = max(
+                2, -(-int(need * 1.3) // C))
+            pkg, _ = render_at_time(gstate.params, cfg, gstate, cam, t, it1,
+                                    None, 1, size, size, bg_t, sh)
+            gt = pkg["render"].clamp(0.0, 1.0)
+        if int(pkg["n_dropped"]) != 0:
+            raise AssertionError("target render dropped instances")
+        step0 = make_train_step(cfg, 0, size, size, extent, sh, 50, bg_t)
+        step1 = make_train_step(cfg, 1, size, size, extent, sh, 50, bg_t)
+        log(f"training: {n} live of {C} Gaussians, {size}x{size}, slot need "
+            f"{need}, capacity_multiplier {cfg.model.capacity_multiplier}, "
+            f"target = render of the --seed {seed + 1} model")
+
+    def checked(out, what):
+        st, op, m = out
+        if int(m["n_dropped"]) != 0:
+            raise AssertionError(f"{what}: n_dropped {int(m['n_dropped'])}")
+        if not (torch.isfinite(m["loss"]) and finite_tree(m["grads"])
+                and finite_tree(st.params)):
+            raise AssertionError(f"{what}: non-finite loss, grads or params")
+        return out
+
+    with Phase("first training step (stage 0): kernels vs plain versions"):
+        with Capture([(rk, "rasterize_binned_bwd"),
+                      (IS, "build_instances_bwd")]) as cap:
+            state, opt, m = checked(step0(state, opt, cam, gt, t, it0,
+                                          gen()), "stage-0 step")
+        sync(dev)
+        log(f"stage-0 step: loss {float(m['loss']):.6f}  psnr "
+            f"{float(m['psnr']):.3f}")
+        with torch.no_grad():
+            res = check_train_kernels(cap, dev, reps)
+
+    with Phase(f"training ({nsteps} stage-1 steps, densify, prune)"):
+        kernels.reset_launch_counts()
+        losses, ms = [], []
+        for k in range(nsteps):
+            if dev.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = step1(state, opt, cam, gt, t, it1 + k, gen())
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            else:
+                t0 = time.perf_counter()
+                out = step1(state, opt, cam, gt, t, it1 + k, gen())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            state, opt, m = checked(out, f"stage-1 step {k}")
+            losses.append(float(m["loss"]))
+        sync(dev)
+        launches = {k: v for k, v in kernels.launch_counts.items()}
+        log(f"stage-1 steps: loss {[round(x, 6) for x in losses]}")
+        log(f"ms per step {[round(x, 3) for x in ms]}; median of steps "
+            f"2-{nsteps}: {float(np.median(ms[1:])):.3f} ms; launches "
+            f"{launches}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not fall")
+        if not rehearse:
+            need_k = ("stack", "expand", "interleave", "blend_fwd",
+                      "blend_bwd")
+            missing = [k for k in need_k if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched: {missing}")
+            if launches["blend_bwd"] != nsteps:
+                raise AssertionError("blend_bwd not launched once a step")
+
+        run = lambda: step1(state, opt, cam, gt, t, it1 + nsteps,  # noqa
+                            gen())
+        a, b = run(), run()
+        same = torch.equal(a[2]["loss"], b[2]["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(O.tree_leaves(a[0].params),
+                                              O.tree_leaves(b[0].params)))
+        log(f"one step run twice from the same state: identical {same}")
+        if not same:
+            raise AssertionError("a step run twice differs; first op that "
+                                 f"differs: {diagnose_nondeterminism(run)}")
+
+        st2, opt2 = DN.densify_and_prune_clone_split(state, opt, cfg, extent,
+                                                     gen())
+        born = int((st2.alive & ~state.alive).sum())
+        split = int((state.alive & ~st2.alive).sum())
+        st3 = DN.prune(st2, cfg, extent, 20)
+        pruned = int((st2.alive & ~st3.alive).sum())
+        log(f"densify: {born - 2 * split} clones, {split} splits "
+            f"({2 * split} children), {pruned} pruned; live "
+            f"{int(state.alive.sum())} -> {int(st3.alive.sum())} of {C}")
+        state, opt, m = checked(step1(st3, opt2, cam, gt, t, it1 + nsteps,
+                                      gen()), "step after densify")
+        log(f"step after densify: loss {float(m['loss']):.6f}")
+
+    with Phase("backward reductions: pallas and batched vs serial"):
+        dfeat, counts = {}, {}
+        for mode in ("serial", "pallas", "batched"):
+            os.environ["GPT_BWD_REDUCE"] = mode
+            kernels.reset_launch_counts()
+            try:
+                with Capture([(IS, "build_instances_bwd")]) as cap:
+                    checked(step1(state, opt, cam, gt, t, it1, gen()),
+                            f"{mode} step")
+                sync(dev)
+            finally:
+                del os.environ["GPT_BWD_REDUCE"]
+            counts[mode] = dict(kernels.launch_counts)
+            dfeat[mode] = cap.out["build_instances_bwd"]
+            if mode == "serial":
+                (gid_row, _, d_inst), _ = cap.args["build_instances_bwd"]
+                order = torch.sort(gid_row.to(torch.int32),
+                                   stable=True).indices
+                srt = d_inst[:10].index_select(1, order)
+                tol = 64 * EPS32 * float(torch.cumsum(srt, dim=1).abs()
+                                         .max())
+        for mode in ("pallas", "batched"):
+            err = float((dfeat[mode] - dfeat["serial"]).abs().max())
+            log(f"{mode} vs serial: max |d dfeat| {err:.3e} (tolerance "
+                f"{tol:.3e}); launches {counts[mode]}")
+            if not err <= tol:
+                raise AssertionError(f"{mode} reduction != serial")
+        if not rehearse and not (counts["pallas"].get("cumsum_channels", 0)
+                                 and counts["batched"].get("cumsum_rows", 0)
+                                 and counts["batched"].get("interleave", 0)):
+            raise AssertionError("the reductions did not launch the scans")
+        launches["cumsum_channels"] = counts["pallas"].get(
+            "cumsum_channels", 0)
+        launches["cumsum_rows"] = counts["batched"].get("cumsum_rows", 0)
+
+    with Phase("profile (one training step)"):
+        device_ms = profile(lambda: step1(state, opt, cam, gt, t, it1,
+                                          gen()), dev, "one training step")
+        for mode, name in (("pallas", "cumsum_channels"),
+                           ("batched", "cumsum_rows")):
+            os.environ["GPT_BWD_REDUCE"] = mode
+            try:
+                dm = profile(lambda: step1(state, opt, cam, gt, t, it1,
+                                           gen()), dev,
+                             f"one training step, {mode} reduction", top=0)
+            finally:
+                del os.environ["GPT_BWD_REDUCE"]
+            device_ms[name] = dm[name]
+        log(f"  blend_bwd device ms per launch {device_ms['blend_bwd']}")
+    return res, launches, device_ms
 
 
 def main() -> int:
@@ -478,7 +854,7 @@ def main() -> int:
         if any(d != 0 for d in stats["n_dropped"]):
             raise AssertionError("n_dropped != 0")
         if not args.rehearse:
-            missing = [k for k in REPLACES if launches.get(k, 0) <= 0]
+            missing = [k for k in FWD_KERNELS if launches.get(k, 0) <= 0]
             if missing:
                 raise AssertionError(f"kernels not launched: {missing}")
         cam0 = views[0].to_device_dict(dev)
@@ -488,7 +864,16 @@ def main() -> int:
             raise AssertionError("one view rendered twice differs")
 
     with Phase("profile (one view, 3 renders)"):
-        device_ms = profile_view(fn, cam0, t0, dev)
+        device_ms = profile(lambda: fn(cam0, t0), dev, "one view")
+        for name in FWD_KERNELS:
+            log(f"  kernel {name}: device ms per launch {device_ms[name]}")
+        device_ms = {k: device_ms[k] for k in FWD_KERNELS}
+
+    tres, tlaunches, tdevice_ms = train_phases(
+        cfg, dev, n, size, args.seed, views, bg, args.rehearse, reps)
+    res.update(tres)
+    launches.update({k: tlaunches.get(k, 0) for k in tres})
+    device_ms.update({k: tdevice_ms[k] for k in tres})
 
     line = {"kernels": [
         {

@@ -4,9 +4,12 @@ state_from_params takes `GaussianState.params` as a nested dict of numpy
 arrays (xyz, features_dc, features_rest, scaling, rotation, opacity,
 motion_feature, df_mlp=[{w, b}, ...], ...) or with the flattened
 "a/b/0/w" names of gaussianprediction_tpu/train/checkpoint.py:_flatten,
-plus the `alive` mask, and returns the port's GaussianState on a device.
-load_jax_checkpoint reads such a .npz checkpoint directly. Arrays keep the
-JAX layout (the MLP's w is [fan_in, fan_out]), so nothing is transposed.
+plus the `alive` mask and, optionally, the densification statistics, and
+returns the port's GaussianState on a device. opt_state_from_arrays
+carries the JAX Adam state ({"m", "v", "step"}) across the same way.
+load_jax_checkpoint reads a .npz checkpoint of the JAX package directly:
+params, optimizer state, statistics and iteration. Arrays keep the JAX
+layout (the MLP's w is [fan_in, fan_out]), so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ import numpy as np
 import torch
 
 from gaussianprediction_tpu_torch.device import resolve_device
-from gaussianprediction_tpu_torch.models.gaussians import GaussianState
+from gaussianprediction_tpu_torch.models.gaussians import (
+    STATS, GaussianState,
+)
 
 
 def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -57,24 +62,47 @@ def _tree_to(tree, device):
 
 
 def state_from_params(params: Dict[str, Any], alive, kpt_alive=None,
-                      device=None) -> GaussianState:
+                      device=None, stats=None) -> GaussianState:
+    """stats: optional {name: array} of the densification statistics
+    (models/gaussians.py:STATS); missing ones start at zero."""
     if any("/" in k for k in params):
         params = unflatten(params)
     dev = resolve_device(device)
+    stats = {k: _to_tensor(v, dev) for k, v in (stats or {}).items()
+             if k in STATS}
     return GaussianState(
         params=_tree_to(params, dev),
         alive=_to_tensor(np.asarray(alive, bool), dev),
         kpt_alive=(None if kpt_alive is None
                    else _to_tensor(np.asarray(kpt_alive, bool), dev)),
+        **stats,
     )
 
 
+def opt_state_from_arrays(opt: Dict[str, Any], device=None):
+    """The JAX package's Adam state {"m": tree, "v": tree, "step": int}
+    (nested or with flattened "m/xyz" names) -> the port's."""
+    if any("/" in k for k in opt):
+        opt = unflatten(opt)
+    dev = resolve_device(device)
+    return {"m": _tree_to(opt["m"], dev), "v": _tree_to(opt["v"], dev),
+            "step": torch.as_tensor(np.asarray(opt["step"]),
+                                    dtype=torch.int32, device=dev)}
+
+
 def load_jax_checkpoint(path: str, device=None):
-    """A JAX package .npz checkpoint -> (GaussianState, iteration)."""
+    """A JAX package .npz checkpoint -> (GaussianState, opt_state,
+    iteration); opt_state is None when the checkpoint holds none."""
     with np.load(path) as f:
         flat = {k: f[k] for k in f.files}
-    params = {k[len("params/"):]: v for k, v in flat.items()
-              if k.startswith("params/")}
-    state = state_from_params(params, flat["meta/alive"],
-                              flat.get("meta/kpt_alive"), device)
-    return state, int(flat["meta/iteration"])
+
+    def under(prefix):
+        return {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+
+    meta = under("meta/")
+    state = state_from_params(under("params/"), meta["alive"],
+                              meta.get("kpt_alive"), device, stats=meta)
+    opt = under("opt/")
+    opt_state = opt_state_from_arrays(opt, device) if opt else None
+    return state, opt_state, int(meta["iteration"])

@@ -41,6 +41,9 @@ _SIGNATURES = {
                         _P],
     "gpt_blend_fwd": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, _P, _P],
+    "gpt_blend_bwd": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                      ctypes.c_int, _P, _P, _P],
+    "gpt_cumsum_rows": [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P],
 }
 
 _lock = threading.Lock()

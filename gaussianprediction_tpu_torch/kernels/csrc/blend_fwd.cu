@@ -13,8 +13,9 @@
 // T *= 1-alpha, done latch at T < 1e-4, tidx = first strict maximum of the
 // blend weight). The block leaves early once every pixel is done.
 //
-// Arithmetic uses the _rn intrinsics (never contracted into FMAs) in the
-// order of the plain PyTorch version, and IEEE expf (no fast math).
+// The per-(pixel, instance) arithmetic is gpt::pair_terms (common.cuh),
+// which the backward kernel shares: _rn intrinsics (never contracted into
+// FMAs) in the order of the plain PyTorch version, and IEEE expf.
 //
 // Bound on the H100: by the f32 arithmetic of the (pixel, instance) pairs
 // evaluated up to each pixel's done latch (11 to 24 operations a pair,
@@ -26,8 +27,8 @@
 
 namespace {
 
-constexpr int kPix = 256;
-constexpr int kCh = 12;  // mx, my, ca, cb, cc, op, r, g, b, z, gid, valid
+constexpr int kPix = gpt::kBlendPix;
+constexpr int kCh = gpt::kBlendCh;
 
 __global__ void __launch_bounds__(kPix)
 blend_fwd_kernel(const float* __restrict__ inst, long long P,
@@ -43,8 +44,6 @@ blend_fwd_kernel(const float* __restrict__ inst, long long P,
   const float py = (float)(ty * 16 + (lin >> 4));
   const int start = tile_start[t];
   const int end = tile_end[t];
-  const float alpha_min = (float)(1.0 / 255.0);
-  const float t_eps = (float)1e-4;
 
   float T = 1.0f;
   int done = 0;
@@ -62,28 +61,18 @@ blend_fwd_kernel(const float* __restrict__ inst, long long P,
     __syncthreads();
     const int nb = min(kPix, end - base);
     for (int i = 0; i < nb && !done; ++i) {
-      if (!(s[11][i] > 0.5f)) continue;
-      const float dx = __fsub_rn(px, s[0][i]);
-      const float dy = __fsub_rn(py, s[1][i]);
-      const float qa = __fmul_rn(__fmul_rn(s[2][i], dx), dx);
-      const float qc = __fmul_rn(__fmul_rn(s[4][i], dy), dy);
-      const float qb = __fmul_rn(__fmul_rn(s[3][i], dx), dy);
-      const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
-      if (!(power <= 0.0f)) continue;
-      const float a = __fmul_rn(s[5][i], expf(power));
-      const float alpha = a > 0.99f ? 0.99f : a;  // NaN stays NaN
-      if (!(alpha >= alpha_min)) continue;
-      const float test_T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
-      if (test_T < t_eps) {
+      gpt::PairTerms q;
+      if (!gpt::pair_terms(&s[0][i], kPix, px, py, T, q)) continue;
+      if (q.test_T < gpt::kTEps) {
         done = 1;
         break;
       }
-      const float w = __fmul_rn(alpha, T);
+      const float w = __fmul_rn(q.alpha, T);
       ar = __fadd_rn(ar, __fmul_rn(w, s[6][i]));
       ag = __fadd_rn(ag, __fmul_rn(w, s[7][i]));
       ab = __fadd_rn(ab, __fmul_rn(w, s[8][i]));
       az = __fadd_rn(az, __fmul_rn(w, s[9][i]));
-      T = test_T;
+      T = q.test_T;
       if (with_tidx && w > wmax) {
         wmax = w;
         bgid = s[10][i];

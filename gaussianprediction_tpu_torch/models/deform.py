@@ -112,8 +112,10 @@ def deform_stage1(params, cfg: Config, state: GaussianState, t, iteration,
     xyz_in = params["xyz"].detach()
     if sigma != 0.0 or noise is not None:
         if noise is None:
+            gdev = generator.device if generator is not None \
+                else xyz_in.device
             noise = torch.randn(xyz_in.shape, generator=generator,
-                                device=xyz_in.device)
+                                device=gdev).to(xyz_in.device)
         xyz_in = xyz_in + sigma * noise
     xyz_embed = xyz_encode(cfg, xyz_in)
     delta_xyz, delta_q, _ = motion_delta(
@@ -128,3 +130,12 @@ def deform_stage1(params, cfg: Config, state: GaussianState, t, iteration,
         kpts_xyz_motion=delta_xyz, kpts_rotation_motion=delta_q,
         delta_xyz=delta_xyz,
     )
+
+
+def motion_feature_reg(params, stage: int):
+    """1e-5 * mean|motion_feature| (the reference's get_loss); stages 2/3
+    regularize the keypoint features instead."""
+    if stage >= 2:
+        raise NotImplementedError(
+            "stages 2/3 are not ported yet (ROADMAP.md)")
+    return 1e-5 * torch.mean(torch.abs(params["motion_feature"]))

@@ -5,24 +5,49 @@ the JAX package's capacity padding: `params` holds [C, ...] tensors (and
 the deform MLP as a list of {"w", "b"} layers) and `alive` marks the live
 rows. Conventions are the reference's: scaling stored as log (exp
 activation), opacity as logit (sigmoid), rotation unnormalized wxyz,
-SH split into dc/rest. create_from_pcd needs KNN and waits for the
-training port; convert.py builds states from arrays.
+SH split into dc/rest. The densification statistics ride on the state
+as in the JAX package; create_from_pcd builds the stage-0/1 parameters
+from a point cloud (the stage-2/3 weight model waits for that slice), and
+convert.py builds states from the JAX package's arrays.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from gaussianprediction_tpu_torch.config import Config
 
+STATS = ("xyz_gradient_accum", "xyz_gradient_accum_max", "denom",
+         "max_radii2D", "xyz_motion_accum_max", "motion_denom")
+
 
 @dataclasses.dataclass
 class GaussianState:
+    """Params, alive masks and the densification statistics ([C] each,
+    zeros when not given; max_radii2D int32, the rest float32)."""
+
     params: Dict[str, Any]
     alive: torch.Tensor                      # [C] bool
     kpt_alive: Optional[torch.Tensor] = None  # [Ck] bool (stages 2/3)
+    xyz_gradient_accum: Optional[torch.Tensor] = None
+    xyz_gradient_accum_max: Optional[torch.Tensor] = None
+    denom: Optional[torch.Tensor] = None
+    max_radii2D: Optional[torch.Tensor] = None
+    xyz_motion_accum_max: Optional[torch.Tensor] = None
+    motion_denom: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        for name in STATS:
+            if getattr(self, name) is None:
+                dt = torch.int32 if name == "max_radii2D" else torch.float32
+                setattr(self, name, torch.zeros(
+                    self.alive.shape, dtype=dt, device=self.alive.device))
+
+    def replace(self, **changes) -> "GaussianState":
+        return dataclasses.replace(self, **changes)
 
     @property
     def capacity(self) -> int:
@@ -65,3 +90,76 @@ def deform_mlp_sizes(cfg: Config):
     delta_dim = 8 if cfg.model.step_opacity else 7
     return ([time_dim + xyz_dim + cfg.model.feature_dim]
             + [cfg.model.w] * cfg.model.d + [delta_dim])
+
+
+def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
+                    generator: Optional[torch.Generator] = None,
+                    motion_feature=None, df_mlp=None,
+                    device=None) -> GaussianState:
+    """The model from a point cloud, padded to capacity (the JAX package's
+    create_from_pcd for stages 0-1): the first min(len(points), C) rows
+    alive, scales log(sqrt(mean squared distance to the 3 nearest
+    points)), SH dc from the colours, identity rotations, opacity 0.1
+    (dead rows -15, scale -10).
+
+    The random parts, motion_feature ([C, F], U(-1e-3, 1e-3)) and the
+    deform MLP, are drawn from `generator` (a torch.Generator on the
+    host) unless given: tests pass the JAX package's draws."""
+    from gaussianprediction_tpu_torch.device import resolve_device
+    from gaussianprediction_tpu_torch.ops.knn import mean_knn_sq_dist
+    from gaussianprediction_tpu_torch.ops.mlp import init_mlp
+    from gaussianprediction_tpu_torch.utils.math import inverse_sigmoid
+    from gaussianprediction_tpu_torch.utils.sh import rgb_to_sh
+
+    dev = resolve_device(device)
+    f32 = torch.float32
+    C = cfg.model.padded_capacity()
+    Ck = cfg.model.kpt_capacity()
+    N0 = min(len(points), C)
+    F = cfg.model.feature_dim
+    B = (cfg.model.sh_degree + 1) ** 2
+
+    pts = torch.zeros((C, 3), dtype=f32, device=dev)
+    pts[:N0] = torch.as_tensor(np.asarray(points[:N0], np.float32),
+                               device=dev)
+    alive = torch.zeros((C,), dtype=torch.bool, device=dev)
+    alive[:N0] = True
+    dist2 = torch.clamp(mean_knn_sq_dist(pts, k=3, valid=alive), min=1e-7)
+    scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    scales = torch.where(alive[:, None], scales,
+                         torch.full_like(scales, -10.0))
+    features_dc = torch.zeros((C, 1, 3), dtype=f32, device=dev)
+    features_dc[:N0, 0] = rgb_to_sh(torch.as_tensor(
+        np.asarray(colors[:N0], np.float32), device=dev))
+    rots = torch.zeros((C, 4), dtype=f32, device=dev)
+    rots[:, 0] = 1.0
+    opac = torch.where(alive[:, None],
+                       inverse_sigmoid(torch.tensor(0.1, dtype=f32)).to(dev),
+                       torch.tensor(-15.0, device=dev)).expand(C, 1)
+
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if motion_feature is None:
+        motion_feature = 1e-3 * (2.0 * torch.rand((C, F), generator=generator)
+                                 - 1.0)
+    if df_mlp is None:
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        df_mlp = init_mlp(np.random.default_rng(seed), deform_mlp_sizes(cfg))
+    to = lambda x: torch.as_tensor(np.array(x, np.float32),  # noqa: E731
+                                   device=dev)
+    params = {
+        "xyz": pts,
+        "features_dc": features_dc,
+        "features_rest": torch.zeros((C, B - 1, 3), dtype=f32, device=dev),
+        "scaling": scales,
+        "rotation": rots,
+        "opacity": opac.contiguous(),
+        "motion_feature": to(motion_feature),
+        "opacity_thres": torch.full((C, 1), -2.0, dtype=f32, device=dev),
+        "super_xyz": torch.ones((Ck, 3), dtype=f32, device=dev),
+        "super_feature": torch.ones((Ck, F), dtype=f32, device=dev),
+        "df_mlp": [{k: to(v) for k, v in layer.items()} for layer in df_mlp],
+    }
+    return GaussianState(params=params, alive=alive,
+                         kpt_alive=torch.zeros((Ck,), dtype=torch.bool,
+                                               device=dev))

@@ -1,7 +1,8 @@
-"""Instance-stream construction (binning + packing), forward only.
+"""Instance-stream construction (binning + packing) and its gradient.
 
 Torch twin of gaussianprediction_tpu/ops/instance_stream.py
-(build_instances_fwd, _capped_rect, probe_slot_need):
+(build_instances_fwd, build_instances_bwd, the build_instances custom VJP,
+_capped_rect, probe_slot_need). The forward:
 
 1. every Gaussian's tile rect is capped to <= max_tiles tiles (a centred
    sub-rect), and every Gaussian owns >= 1 slot: empty ones get one
@@ -25,16 +26,31 @@ Capacity policy (the JAX package's): slots >= capacity are invalid;
 n_dropped counts rect-capping losses plus slots past capacity. The buffer
 lengths round up as the JAX package's do (ALIGN, then ILV_BLK), so the
 segment bounds, clamped to the buffer, match its values exactly.
+
+The backward (build_instances_bwd) reduces the [16, P] instance cotangent
+to per-Gaussian gradients [N, 10]: one stable sort of the cotangent
+columns by gid, then per-Gaussian sums as differences of inclusive
+cumsums at the run boundaries, which come from the KEPT per-Gaussian
+counts (slots past capacity dropped), not the raw ones. GPT_BWD_REDUCE
+picks how the cumsums run, as in the JAX package: "serial" (default, the
+per-channel cumsums of the [10, P] rows), "batched" (the interleave
+kernel, then the scan kernel's cumsum_rows of the [16, P] matrix;
+GPT_BWD_BATCHED_CUMSUM=1 also selects it) or "pallas" (the scan kernel's
+cumsum_channels, the stack fused with the scan; ops/scan.py). Every step is
+a sort, gather or scan: no atomics, so the result is deterministic.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import os
+
 import torch
 
-from gaussianprediction_tpu_torch.ops import expand
+from gaussianprediction_tpu_torch.ops import expand, scan
 from gaussianprediction_tpu_torch.ops.projection import TILE, f32_to_i32
 
+C_GID_ROW = 10     # gid row of the packed instance SoA
 ALIGN = 8192       # slot-buffer rounding of the JAX expand kernels
 ILV_BLK = 32768    # stream rounding of the JAX interleave kernel
 Z_PAD = 3e38       # depth of the rounding pad slots
@@ -102,10 +118,13 @@ def orderable_bits(z):
 
 
 def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
-                        grid_y: int, capacity: int, max_tiles: int = 1024):
+                        grid_y: int, capacity: int, max_tiles: int = 1024,
+                        with_kept: bool = False):
     """feat: [N, 10] (mx, my, ca, cb, cc, op, r, g, b, z); channel 9, z, is
     the depth that orders instances inside a tile. Returns the
-    InstanceStream."""
+    InstanceStream, and with with_kept=True also the [N] int32 counts of
+    each Gaussian's slots that stayed under capacity (the backward's run
+    lengths)."""
     N = feat.shape[0]
     dev = feat.device
     num_tiles = grid_x * grid_y
@@ -176,5 +195,89 @@ def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
     )
     area_drop = area_full.sum() - total_real
     n_dropped = (area_drop + torch.clamp(total1 - capacity, min=0)).to(i32)
-    return InstanceStream(inst, tile_start, tile_end, n_dropped,
-                          (total1 + area_drop).to(i32))
+    stream = InstanceStream(inst, tile_start, tile_end, n_dropped,
+                            (total1 + area_drop).to(i32))
+    if not with_kept:
+        return stream
+    # empty Gaussians' singleton slots carry gid -1: their kept count is 0
+    kept = torch.where(
+        count > 0,
+        torch.clamp(offsets + count, max=capacity)
+        - torch.clamp(offsets, max=capacity),
+        zero,
+    ).to(i32)
+    return stream, kept
+
+
+def reduce_mode() -> str:
+    mode = os.environ.get("GPT_BWD_REDUCE") or (
+        "batched" if os.environ.get("GPT_BWD_BATCHED_CUMSUM", "0") == "1"
+        else "serial")
+    if mode not in ("serial", "batched", "pallas"):
+        raise ValueError(f"GPT_BWD_REDUCE={mode!r}: serial, batched or pallas")
+    return mode
+
+
+def build_instances_bwd(gid_row, kept, d_inst, mode=None):
+    """Per-Gaussian gradients [N, 10] from the instance cotangent d_inst
+    [16, P]. gid_row: the stream's sorted gid row (inst[10], -1 for
+    invalid slots); kept: [N] int32 kept slot counts."""
+    P = gid_row.shape[0]
+    mode = mode or reduce_mode()
+    gid = gid_row.to(torch.int32)
+    order = torch.sort(gid, stable=True).indices
+    b = d_inst[:10].index_select(1, order)             # [10, P] by gid
+    counts = kept.to(torch.int64)
+    ends = (P - counts.sum()) + torch.cumsum(counts, 0)  # invalid slots first
+    starts = ends - counts
+    if mode == "serial":
+        # the ten per-channel cumsums as ONE row-wise cumsum of [10, P]: a
+        # 1-d torch.cumsum on the card runs a decoupled look-back scan whose
+        # f32 sums differ from run to run; the row-wise scan does not
+        cs = torch.cat([b.new_zeros((10, 1)), torch.cumsum(b, dim=1)], dim=1)
+        return (cs[:, ends] - cs[:, starts]).T
+    if mode == "pallas":
+        cs = scan.cumsum_channels([b[c] for c in range(10)])
+    else:
+        mat = expand.interleave_rows(
+            [b[c] for c in range(10)]
+            + [gid.index_select(0, order).to(torch.float32)])
+        cs = scan.cumsum_rows(mat)
+    e1 = torch.clamp(ends - 1, min=0)
+    s1 = torch.clamp(starts - 1, min=0)
+    zero = b.new_zeros(())
+    cols = []
+    for c in range(10):
+        lo = torch.where(starts > 0, cs[c][s1], zero)
+        cols.append(torch.where(counts > 0, cs[c][e1] - lo, zero))
+    return torch.stack(cols, dim=1)
+
+
+class _BuildInstances(torch.autograd.Function):
+    """build_instances_fwd with its gradient w.r.t. feat (the JAX
+    build_instances custom VJP); the rects and visibility carry none."""
+
+    @staticmethod
+    def forward(ctx, feat, tiles_min, tiles_max, visible, grid_x, grid_y,
+                capacity, max_tiles):
+        stream, kept = build_instances_fwd(
+            feat.detach(), tiles_min, tiles_max, visible, grid_x, grid_y,
+            capacity, max_tiles, with_kept=True)
+        ctx.save_for_backward(stream.inst, kept)
+        ctx.mark_non_differentiable(stream.tile_start, stream.tile_end,
+                                    stream.n_dropped, stream.n_total)
+        return tuple(stream)
+
+    @staticmethod
+    def backward(ctx, d_inst, *_):
+        inst, kept = ctx.saved_tensors
+        dfeat = build_instances_bwd(inst[C_GID_ROW], kept, d_inst)
+        return dfeat, None, None, None, None, None, None, None
+
+
+def build_instances(feat, tiles_min, tiles_max, visible, grid_x: int,
+                    grid_y: int, capacity: int, max_tiles: int = 1024):
+    """Differentiable build_instances_fwd: gradients flow to feat only."""
+    return InstanceStream(*_BuildInstances.apply(
+        feat, tiles_min, tiles_max, visible, grid_x, grid_y, capacity,
+        max_tiles))

@@ -1,10 +1,15 @@
 """Public render API: one view of Gaussians -> image, depth, alpha, tidx.
 
-Torch twin of gaussianprediction_tpu/ops/rasterize.py:render, forward
-only (the eval path): projection + covariance (ops/projection.py), SH
-color (utils/sh.py), the fused instance stream (ops/instance_stream.py)
-and the tile blend (ops/rasterize_kernels.py), then tile -> image assembly.
-The returned dict has the JAX package's keys.
+Torch twin of gaussianprediction_tpu/ops/rasterize.py:render: projection +
+covariance (ops/projection.py), SH color (utils/sh.py), the fused instance
+stream (ops/instance_stream.py) and the tile blend
+(ops/rasterize_kernels.py), then tile -> image assembly. The returned dict
+has the JAX package's keys.
+
+When any input needs a gradient, the stream and the blend run through
+their autograd Functions, so gradients reach xyz, scaling, rotation,
+opacity, shs (or colors_precomp) and means2d_dummy; otherwise (eval, under
+torch.no_grad) the kernels are called directly.
 """
 from __future__ import annotations
 
@@ -31,9 +36,14 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
            alive=None, scaling_modifier: float = 1.0,
            capacity_multiplier=24, tile_band=None,
            fast_binning: bool = True, max_tiles: int = 1024,
-           need_tidx: bool = True):
-    """Render one view (forward only). scaling and opacity are activated,
-    rotation unnormalized, shs [N, 3, K] (or colors_precomp [N, 3]).
+           need_tidx: bool = True, means2d_dummy=None):
+    """Render one view. scaling and opacity are activated, rotation
+    unnormalized, shs [N, 3, K] (or colors_precomp [N, 3]).
+
+    means2d_dummy ([N, 2] zeros, optional) is the NDC-scale gradient
+    carrier of the reference CUDA rasterizer: it enters the projected means
+    as dummy * (W/2, H/2), so its gradient is the screen-space gradient in
+    NDC units that the densification thresholds assume.
 
     capacity_multiplier * N bounds the instance buffer; drops are reported
     in "n_dropped" so callers can size it for exact renders. Tile rects are
@@ -73,6 +83,10 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
         scaling_modifier=scaling_modifier, alive=alive,
         opacity=opacity.detach(),
     )
+    mean2d = proj.mean2d
+    if means2d_dummy is not None:
+        mean2d = mean2d + means2d_dummy * torch.tensor(
+            [width * 0.5, height * 0.5], dtype=torch.float32, device=dev)
 
     if colors_precomp is None:
         dirs = xyz - cam["camera_center"][None, :]
@@ -85,16 +99,26 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
     capacity = max(int(capacity_multiplier * N), CHUNK)
     capacity = ((capacity + CHUNK - 1) // CHUNK) * CHUNK
     feat = torch.cat(
-        [proj.mean2d, proj.conic, (opacity.reshape(-1) * 1.0)[:, None],
+        [mean2d, proj.conic, (opacity.reshape(-1) * 1.0)[:, None],
          colors, proj.depth[:, None]],
         dim=-1,
     ).to(torch.float32)  # [N, 10]
-    stream = instance_stream.build_instances_fwd(
-        feat, proj.tiles_min, proj.tiles_max, proj.visible, grid_x, grid_y,
-        capacity, max_tiles,
-    )
-    out_f = rk.rasterize_binned(stream.inst, stream.tile_start,
-                                stream.tile_end, grid_x, grid_y, need_tidx)
+    if feat.requires_grad:
+        stream = instance_stream.build_instances(
+            feat, proj.tiles_min, proj.tiles_max, proj.visible, grid_x,
+            grid_y, capacity, max_tiles,
+        )
+        out_f = rk.RasterizeBinned.apply(stream.inst, stream.tile_start,
+                                         stream.tile_end, grid_x, grid_y,
+                                         need_tidx)
+    else:
+        stream = instance_stream.build_instances_fwd(
+            feat, proj.tiles_min, proj.tiles_max, proj.visible, grid_x,
+            grid_y, capacity, max_tiles,
+        )
+        out_f = rk.rasterize_binned(stream.inst, stream.tile_start,
+                                    stream.tile_end, grid_x, grid_y,
+                                    need_tidx)
 
     img = _assemble(out_f, grid_x, grid_y, height, width)  # [H, W, 8]
     T_final = img[..., rk.O_T]

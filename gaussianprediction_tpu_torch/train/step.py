@@ -1,9 +1,17 @@
-"""Deform + render for stages 0 and 1: the single entry used by eval.
+"""Training step for stages 0 and 1, and the deform + render entry.
 
-Torch twin of gaussianprediction_tpu/train/step.py:render_at_time and
-deform_for_stage, and of train/loop.py:stage_of. The training step itself
-(loss, backward, densification statistics, Adam) waits for the training
-slice of the port, as do stages 2 and 3.
+Torch twin of gaussianprediction_tpu/train/step.py (time_with_noise,
+deform_for_stage, render_at_time, make_train_step) and of
+train/loop.py:stage_of. One step: time noise; deform (stage 0: the
+canonical Gaussians, stage 1: the per-Gaussian deform MLP); render with the
+NDC-scale means2d carrier; loss = (1-λ)L1 + λ(1-SSIM) + the motion-feature
+regularizer; backward (the blend and instance-stream kernels' own
+backward); the densification statistics from the carrier's gradient
+norm; masked per-group Adam.
+
+Random draws come from a torch.Generator, or are passed pre-drawn (the
+parity tests hand both packages the same N(0,1) draws). Stages 2/3, the
+batched steps and the Trainer loop wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -17,6 +25,11 @@ from gaussianprediction_tpu_torch.models.gaussians import (
     GaussianState, get_shs,
 )
 from gaussianprediction_tpu_torch.ops import rasterize
+from gaussianprediction_tpu_torch.train import optimizer as opt_mod
+from gaussianprediction_tpu_torch.utils.image import (
+    dssim_l1_loss, l1_loss, psnr,
+)
+from gaussianprediction_tpu_torch.utils.schedules import linear_anneal
 
 
 def stage_of(cfg: Config, iteration: int) -> int:
@@ -27,6 +40,11 @@ def stage_of(cfg: Config, iteration: int) -> int:
     if iteration <= cfg.train.third_stage_iteration:
         return 2
     return 3
+
+
+def _randn(shape, generator: Optional[torch.Generator], device):
+    gdev = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, device=gdev).to(device)
 
 
 def deform_for_stage(params, cfg: Config, state: GaussianState, t,
@@ -43,11 +61,30 @@ def deform_for_stage(params, cfg: Config, state: GaussianState, t,
     )
 
 
+def time_with_noise(cfg: Config, t, iteration: int,
+                    generator: Optional[torch.Generator], stage: int,
+                    total_frame: int, noise=None):
+    """t + N(0,1) * time_noise_ratio / total_frame * anneal (stages 0-1),
+    when use_time_decay is on. `noise` is the N(0,1) draw, or None to draw
+    it from `generator`."""
+    if stage >= 2:
+        raise NotImplementedError(
+            f"stage {stage} is not ported yet (ROADMAP.md)")
+    if not cfg.train.use_time_decay:
+        return t
+    anneal = linear_anneal(iteration, 1.0, cfg.train.time_noise_iteration)
+    if noise is None:
+        noise = _randn((), generator, t.device)
+    noise = torch.as_tensor(noise, dtype=torch.float32, device=t.device)
+    return t + noise * cfg.train.time_noise_ratio / total_frame * \
+        anneal.to(t.device)
+
+
 def render_at_time(params, cfg: Config, state: GaussianState, cam, t,
                    iteration: int, generator: Optional[torch.Generator],
                    stage: int, width: int, height: int, bg, sh_degree: int,
                    need_tidx: bool = False, active_sh_degree=None,
-                   noise=None):
+                   noise=None, means2d_dummy=None):
     """Deform + render one view at time t (a 0-d f32 tensor).
 
     active_sh_degree zeroes the coefficients beyond (deg+1)^2 under the
@@ -63,6 +100,93 @@ def render_at_time(params, cfg: Config, state: GaussianState, cam, t,
         out.xyz, out.scaling, out.rotation, out.opacity, shs, cam, width,
         height, bg, sh_degree=sh_degree, alive=state.alive,
         capacity_multiplier=cfg.model.capacity_multiplier,
-        need_tidx=need_tidx,
+        need_tidx=need_tidx, means2d_dummy=means2d_dummy,
     )
     return pkg, out
+
+
+def make_train_step(cfg: Config, stage: int, width: int, height: int,
+                    spatial_scale: float, sh_degree: int, total_frame: int,
+                    bg):
+    """The training step of stage 0 or 1:
+
+    step(state, opt_state, cam, gt, t, iteration, generator=None,
+         active_deg=None, noise=None, time_noise=None)
+      -> (state, opt_state, metrics)
+
+    gt is the [H, W, 3] target, t a 0-d f32 tensor, iteration the global
+    iteration. noise ([C, 3]) and time_noise (0-d) are the N(0,1) draws of
+    the xyz and time jitter, drawn from `generator` when None. metrics:
+    loss, l1, psnr, n_dropped, and grads (the gradient of every trainable
+    param, the JAX package's tree layout)."""
+    if stage >= 2:
+        raise NotImplementedError(
+            f"stage {stage} is not ported yet (ROADMAP.md)")
+    opt_stage = max(stage, 1)
+    groups = opt_mod.active_groups(cfg, opt_stage)
+
+    def loss_and_grads(state, cam, gt, t, iteration, generator, active_deg,
+                       noise):
+        trainable = [k for k in state.params
+                     if opt_mod.GROUP_OF_PARAM[k] in groups]
+        params = dict(state.params)
+        for k in trainable:
+            params[k] = opt_mod.tree_map(
+                lambda x: x.detach().requires_grad_(True), params[k])
+        dummy = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                            device=state.device, requires_grad=True)
+        pkg, _ = render_at_time(
+            params, cfg, state, cam, t, iteration, generator, stage, width,
+            height, bg, sh_degree, active_sh_degree=active_deg, noise=noise,
+            means2d_dummy=dummy)
+        img = pkg["render"]
+        loss = dssim_l1_loss(img, gt, cfg.opt.lambda_dssim) + \
+            D.motion_feature_reg(params, stage)
+        leaves = [x for k in trainable for x in opt_mod.tree_leaves(params[k])]
+        got = torch.autograd.grad(loss, leaves + [dummy], allow_unused=True)
+        got = [torch.zeros_like(x) if g is None else g
+               for x, g in zip(leaves + [dummy], got)]
+        it = iter(got)
+        grads = {k: opt_mod.tree_map(lambda _: next(it), params[k])
+                 for k in trainable}
+        aux = {
+            "l1": l1_loss(img, gt).detach(),
+            "psnr": psnr(img, gt).detach(),
+            "radii": pkg["radii"],
+            "visibility": pkg["visibility_filter"],
+            "n_dropped": pkg["n_dropped"],
+        }
+        return loss.detach(), grads, next(it), aux
+
+    def step(state: GaussianState, opt_state, cam, gt, t, iteration: int,
+             generator: Optional[torch.Generator] = None, active_deg=None,
+             noise=None, time_noise=None):
+        t = time_with_noise(cfg, t, iteration, generator, stage, total_frame,
+                            noise=time_noise)
+        loss, grads, vs_grads, aux = loss_and_grads(
+            state, cam, gt, t, iteration, generator, active_deg, noise)
+        with torch.no_grad():
+            # densification statistics
+            vis = aux["visibility"]
+            vs_norm = torch.linalg.norm(vs_grads, dim=-1)
+            do_stats = vis & (iteration < cfg.opt.densify_until_iter)
+            state = state.replace(
+                max_radii2D=torch.where(
+                    do_stats, torch.maximum(state.max_radii2D, aux["radii"]),
+                    state.max_radii2D),
+                xyz_gradient_accum=state.xyz_gradient_accum + torch.where(
+                    do_stats, vs_norm, torch.zeros_like(vs_norm)),
+                xyz_gradient_accum_max=torch.where(
+                    do_stats & (vs_norm > state.xyz_gradient_accum_max),
+                    vs_norm, state.xyz_gradient_accum_max),
+                denom=state.denom + do_stats.to(torch.float32),
+            )
+            new_params, opt_state = opt_mod.adam_step(
+                state.params, grads, opt_state, cfg, opt_stage,
+                spatial_scale, iteration)
+        state = state.replace(params=new_params)
+        metrics = {"loss": loss, "l1": aux["l1"], "psnr": aux["psnr"],
+                   "n_dropped": aux["n_dropped"], "grads": grads}
+        return state, opt_state, metrics
+
+    return step

@@ -8,6 +8,11 @@ from __future__ import annotations
 import torch
 
 
+def inverse_sigmoid(x):
+    """log(x / (1-x)); inverse of the opacity activation."""
+    return torch.log(x / (1.0 - x))
+
+
 def quat_mul(q1, q2):
     """Hamilton product q1 ⊗ q2 (so R(q1q2) = R(q1) @ R(q2)), wxyz."""
     w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]

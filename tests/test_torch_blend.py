@@ -1,5 +1,6 @@
-"""Parity of the port's forward tile blend (ops/rasterize_kernels.py) and
-its torch oracle (ops/rasterize_reference.py) with the JAX package.
+"""Parity of the port's tile blend (ops/rasterize_kernels.py), forward and
+backward, and its torch oracle (ops/rasterize_reference.py) with the JAX
+package.
 
 The same instance stream (built by the JAX package) is blended by the
 JAX Pallas forward kernel (interpret mode) and by the port. The port
@@ -10,6 +11,15 @@ level in association. Tolerances are the JAX package's own
 (tests/test_rasterizer.py): rgb and T 2e-5, depth 2e-4; tidx is held
 equal at every pixel whose top weight beats the runner-up by more than
 1e-6 relative (ties break differently by design).
+
+The backward's plain version is held to the JAX custom VJP (Pallas
+backward kernel, interpret mode) on the same stream and cotangent, row by
+row within 2e-4 of the row's largest magnitude: the tolerance the JAX
+package holds its own backward to against the oracle
+(tests/test_rasterizer.py), since the Pallas kernel sums through bf16x3
+MXU splits and takes dop = sum(dpower) / op. Through the port's render it
+is held to the gradient of the JAX lax.scan oracle with that same
+tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -114,3 +124,83 @@ def test_torch_oracle_matches_jax_oracle():
     np.testing.assert_allclose(n(ours[1]), n(ref[1]), atol=2e-4)
     np.testing.assert_allclose(n(ours[2]), n(ref[2]), atol=2e-5)
     assert np.mean(n(ours[3]) == n(ref[3])) > 0.99
+
+
+@pytest.mark.parametrize("case", ["unaligned", "saturated"])
+def test_backward_matches_pallas_vjp(case):
+    """Segments start anywhere in the stream (unaligned); with high
+    opacity the done latch fires (saturated)."""
+    import jax
+
+    boost = 4.0 if case == "saturated" else 0.0
+    s = _stream(1500, seed=1, opacity_boost=boost)
+    assert (np.asarray(s.tile_start) % 128 != 0).any()
+    out, vjp = jax.vjp(
+        lambda inst: JR.rasterize_binned(inst, s.tile_start, s.tile_end, GX,
+                                         GY, True, False), s.inst)
+    cot = np.random.default_rng(3).normal(size=out.shape).astype(np.float32)
+    (ref,) = vjp(jnp.asarray(cot))
+    inst = t(s.inst)
+    ours_out = TR.rasterize_binned(inst, t(s.tile_start), t(s.tile_end), GX,
+                                   GY, False)
+    if case == "saturated":
+        assert (n(ours_out)[..., TR.O_T] < 1e-3).any()
+    dpix = TR.pixel_grads(ours_out, t(cot))
+    ours = TR.rasterize_binned_bwd_plain(inst, t(s.tile_start),
+                                         t(s.tile_end), GX, GY, dpix)
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(TR.rasterize_binned_bwd(
+        inst, t(s.tile_start), t(s.tile_end), GX, GY, dpix), ours)
+    ref = np.asarray(ref)[:, :ours.shape[1]]
+    ours = n(ours)
+    assert not ours[10:].any()
+    for c in range(10):
+        scale = np.abs(ref[c]).max()
+        assert scale > 0
+        np.testing.assert_allclose(ours[c], ref[c], rtol=0,
+                                   atol=2e-4 * scale, err_msg=f"row {c}")
+
+
+def test_render_gradients_match_jax_oracle():
+    """d loss / d (xyz, log scale, rotation, opacity, colour) through the
+    port's render (stream and blend backward) against the JAX lax.scan
+    oracle's, as tests/test_rasterizer.py holds the Pallas render."""
+    import jax
+
+    from gaussianprediction_tpu.data.synthetic import random_gaussians
+    from gaussianprediction_tpu_torch.data.synthetic import (
+        orbit_camera as torbit,
+    )
+    from gaussianprediction_tpu_torch.ops.rasterize import render
+
+    g = random_gaussians(100, seed=2, scale_range=(-3.4, -2.0))
+    opac = (1.0 / (1.0 + np.exp(-g["opacity_logit"][:, 0]))).astype(
+        np.float32)
+    cam = orbit_camera(0.5, width=W, height=H).to_device_dict()
+    tcam = torbit(0.5, width=W, height=H).to_device_dict("cpu")
+    target = np.random.default_rng(9).uniform(0, 1, (H, W, 3)).astype(
+        np.float32)
+
+    def loss_oracle(xyz, log_s, rot, op, col):
+        rot = rot / jnp.linalg.norm(rot, axis=-1, keepdims=True)
+        proj = JP.project_from_params(xyz, jnp.exp(log_s), rot, cam, W, H)
+        rgb, depth, _, _ = JO.rasterize_pixels_reference(
+            proj, col, op, jnp.zeros(3), W, H)
+        return jnp.mean((rgb - target) ** 2) + 0.1 * jnp.mean(depth)
+
+    args = [g["xyz"], g["log_scales"], g["rotation"], opac, g["colors"]]
+    ref = jax.grad(loss_oracle, argnums=(0, 1, 2, 3, 4))(
+        *[jnp.asarray(a) for a in args])
+    targs = [t(a).requires_grad_(True) for a in args]
+    xyz, log_s, rot, op, col = targs
+    out = render(xyz, torch.exp(log_s), rot, op, None, tcam, W, H,
+                 torch.zeros(3), colors_precomp=col)
+    assert int(out["n_dropped"]) == 0
+    loss = torch.mean((out["render"] - t(target)) ** 2) + \
+        0.1 * torch.mean(out["depth"])
+    loss.backward()
+    names = ["xyz", "log_scales", "rotation", "opacity", "colors"]
+    for name, a, b in zip(names, targs, ref):
+        scale = max(np.abs(np.asarray(b)).max(), 1e-6)
+        np.testing.assert_allclose(n(a.grad), np.asarray(b), rtol=0,
+                                   atol=2e-4 * scale + 1e-8, err_msg=name)

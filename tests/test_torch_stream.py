@@ -8,6 +8,12 @@ n_total, and the sorted [16, P] stream inside every tile segment (the
 lie the invalid slots, whose order is not part of the contract. Covered:
 a stream sized for zero drops, a capacity overflow (n_dropped > 0) and
 rect capping (max_tiles small enough to cap).
+
+The backward (the per-Gaussian reduction of the instance cotangent) is
+held to the JAX custom VJP in all three GPT_BWD_REDUCE modes, sized and
+overflowing, within 64 * 2^-24 of the largest running sum |cumsum| of the
+sorted cotangent: both take differences of f32 prefix sums, which XLA and
+PyTorch associate differently.
 """
 import jax
 import jax.numpy as jnp
@@ -112,3 +118,41 @@ def test_orderable_bits_is_lax_sort_order():
     ref = jax.lax.sort((jnp.asarray(z), jnp.arange(z.size)), num_keys=1,
                        is_stable=True)[1]
     np.testing.assert_array_equal(n(order), n(ref))
+
+
+@pytest.fixture(scope="module", params=["sized", "overflow"])
+def stream_vjp(request):
+    """The JAX VJP of build_instances (its default reduction) on one
+    random cotangent, shared by the port's three modes."""
+    _, _, _, proj, feat = _projected()
+    capacity = 1024 if request.param == "overflow" else 8 * 2000
+    args = (proj.tiles_min, proj.tiles_max, proj.visible)
+    stream, vjp = jax.vjp(
+        lambda f: JS.build_instances(f, proj.depth, *args, GX, GY, capacity,
+                                     1024, True), feat)
+    assert (int(stream.n_dropped) > 0) == (request.param == "overflow")
+    cot = np.random.default_rng(8).normal(size=stream.inst.shape).astype(
+        np.float32)
+    (ref,) = vjp(stream._replace(inst=jnp.asarray(cot)))
+    # the tolerance's scale: the largest running sum the reduction forms
+    gid = np.asarray(stream.inst)[10]
+    srt = cot[:10, np.argsort(gid, kind="stable")]
+    tol = 64 * 2.0 ** -24 * np.abs(np.cumsum(srt, axis=1)).max()
+    return feat, args, capacity, cot, np.asarray(ref), tol
+
+
+@pytest.mark.parametrize("mode", ["serial", "batched", "pallas"])
+def test_build_instances_backward_matches_jax(monkeypatch, stream_vjp,
+                                              mode):
+    monkeypatch.setenv("GPT_BWD_REDUCE", mode)
+    feat, args, capacity, cot, ref, tol = stream_vjp
+    tfeat = t(feat).requires_grad_(True)
+    ours = TS.build_instances(tfeat, *[t(a) for a in args], GX, GY,
+                              capacity)
+    ours.inst.backward(t(cot))
+    assert np.abs(ref).max() > 100 * tol
+    np.testing.assert_allclose(n(tfeat.grad), ref, rtol=0, atol=tol)
+    _, kept = TS.build_instances_fwd(t(feat), *[t(a) for a in args], GX, GY,
+                                     capacity, with_kept=True)
+    direct = TS.build_instances_bwd(ours.inst[10], kept, t(cot), mode=mode)
+    assert torch.equal(direct, tfeat.grad)

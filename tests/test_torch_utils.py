@@ -25,6 +25,9 @@ from gaussianprediction_tpu.models import deform as jdeform
 from gaussianprediction_tpu.models import gaussians as jgauss
 from gaussianprediction_tpu.ops import hashgrid as jhash
 from gaussianprediction_tpu.ops import projection as jproj
+from gaussianprediction_tpu.ops import knn as jknn
+from gaussianprediction_tpu.train import optimizer as jopt
+from gaussianprediction_tpu.utils import image as jimage
 from gaussianprediction_tpu.utils import math as jmath
 from gaussianprediction_tpu.utils import schedules as jsched
 from gaussianprediction_tpu.utils import sh as jsh
@@ -34,8 +37,11 @@ from gaussianprediction_tpu_torch.data import synthetic as tsyn
 from gaussianprediction_tpu_torch.device import resolve_device
 from gaussianprediction_tpu_torch.models import deform as tdeform
 from gaussianprediction_tpu_torch.models import gaussians as tgauss
+from gaussianprediction_tpu_torch.ops import knn as tknn
 from gaussianprediction_tpu_torch.ops import mlp as tmlp
 from gaussianprediction_tpu_torch.ops import projection as tproj
+from gaussianprediction_tpu_torch.train import optimizer as topt
+from gaussianprediction_tpu_torch.utils import image as timage
 from gaussianprediction_tpu_torch.utils import math as tmath
 from gaussianprediction_tpu_torch.utils import schedules as tsched
 from gaussianprediction_tpu_torch.utils import sh as tsh
@@ -89,6 +95,74 @@ def test_cov6_to_mat():
 def test_linear_anneal(step):
     assert float(tsched.linear_anneal(step, 0.1, 10_000)) == \
         float(jsched.linear_anneal(step, 0.1, 10_000))
+
+
+@pytest.mark.parametrize("group", ["xyz", "df_mlp", "s_xyz", "weight_mlp",
+                                   "motion_feature", "f_rest", "rotation"])
+def test_expon_lr_group_lr(group):
+    # f32 exp/log/sin of XLA and PyTorch agree to a few ulps
+    cfg_j, cfg_t = jcfg.get_preset("dnerf"), tcfg.get_preset("dnerf")
+    for step in (-1, 0, 1, 777, 20_000, 40_000, 70_000):
+        a = float(topt.group_lr(group, cfg_t, 1.7, step))
+        b = float(jopt.group_lr(group, cfg_j, 1.7, jnp.int32(step)))
+        assert a == pytest.approx(b, rel=2e-6, abs=0), (group, step)
+    assert float(tsched.expon_lr(5, 0.0, 0.0)) == 0.0
+
+
+@pytest.mark.parametrize("fn", ["l1_loss", "psnr", "ssim", "dssim",
+                                "dssim_l1_loss"])
+def test_image_losses(fn):
+    # the SSIM blur is two f32 banded matmuls in both packages
+    a = RNG.uniform(0, 1, (37, 45, 3)).astype(np.float32)
+    b = np.clip(a + rnd(37, 45, 3, scale=0.1), 0, 1)
+    ours = float(getattr(timage, fn)(t(a), t(b)))
+    ref = float(getattr(jimage, fn)(jnp.asarray(a), jnp.asarray(b)))
+    assert ours == pytest.approx(ref, rel=1e-5, abs=1e-6)
+
+
+def test_mean_knn_sq_dist():
+    # same formula, ||q||^2 + ||p||^2 - 2 q.p, whose cancellation makes
+    # its f32 roundoff a few ulps of ||p||^2 (the dot products sum in
+    # another order): atol 4 * 2^-24 * max ||p||^2
+    p = rnd(700, 3)
+    valid = RNG.random(700) > 0.2
+    ours = n(tknn.mean_knn_sq_dist(t(p), 3, valid=t(valid), block=128))
+    ref = n(jknn.mean_knn_sq_dist(jnp.asarray(p), 3,
+                                  valid=jnp.asarray(valid), block=128))
+    atol = 4 * 2.0 ** -24 * float((p * p).sum(-1).max())
+    np.testing.assert_allclose(ours[valid], ref[valid], rtol=1e-5, atol=atol)
+    assert np.isinf(ours[~valid]).all() and np.isinf(ref[~valid]).all()
+    d, i = tknn.knn(t(p), t(p), 4, point_valid=t(valid))
+    assert valid[n(i)].all()
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_adam_step(stage):
+    # the same f32 update formula; sqrt/pow agree to an ulp
+    cfg_j, cfg_t = jcfg.get_preset("dnerf"), tcfg.get_preset("dnerf")
+    params = {"xyz": rnd(30, 3), "opacity": rnd(30, 1),
+              "df_mlp": [{"w": rnd(4, 5), "b": rnd(5)}],
+              "super_xyz": rnd(6, 3)}
+    grads = {k: jax.tree.map(lambda x: rnd(*x.shape), v)
+             for k, v in params.items()}
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jopt.init_adam(jp)
+    tp = jax.tree.map(t, params)
+    ts = topt.init_adam(tp)
+    tg = jax.tree.map(t, grads)
+    for it in (100, 101, 102):
+        jp, js = jopt.adam_step(jp, jax.tree.map(jnp.asarray, grads), js,
+                                cfg_j, stage, 1.3, jnp.int32(it))
+        tp, ts = topt.adam_step(tp, tg, ts, cfg_t, stage, 1.3, it)
+    assert int(ts["step"]) == int(js["step"]) == 3
+    for tree_t, tree_j in ((tp, jp), (ts["m"], js["m"]), (ts["v"], js["v"])):
+        for a, b in zip(topt.tree_leaves(tree_t), jax.tree.leaves(tree_j)):
+            np.testing.assert_allclose(n(a), n(b), rtol=1e-6, atol=1e-7)
+    moved = stage == 1
+    assert topt.stage_start(cfg_t, stage) == jopt.stage_start(cfg_j, stage)
+    assert (not np.array_equal(n(tp["xyz"]), params["xyz"])) == moved
+    assert (not np.array_equal(n(tp["super_xyz"]), params["super_xyz"])) \
+        == (not moved)
 
 
 @pytest.mark.parametrize("deg", [0, 1, 2, 3])
