@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stage-1 eval render and its stage-0/1 training
-step on one NVIDIA H100.
+"""Drive the PyTorch port's stage-1 eval render and its training steps of
+every stage on one NVIDIA H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -43,14 +43,34 @@ the run with a non-zero exit and no result line):
      batched (interleave + cumsum_rows), each against serial on the same
      state: the per-Gaussian gradient within f32 cumsum roundoff;
  11. a torch.profiler breakdown of one training step;
- 12. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 12. the 1->2 transition of the trained stage-1 model at iteration 30001:
+     a smooth non-zero motion feature, a seeded hash-grid weight model (16
+     levels, F=4, T=2^19, the 2x64 MLP), k-means keypoints
+     (set_super_keypoints) and a fresh Adam: exactly 100 keypoints alive,
+     every value finite;
+ 13. the first stage-2 step with its scatter_add_sorted inputs captured
+     (M = 26,214,400 contributions into 6,101,902 slots at this width):
+     the kernel within 64 * 2^-24 * Σ|contributions| of each slot of its
+     plain version, two launches bit-identical, and compared bit for bit
+     with the serial sum on the CPU; index_add_ timed as the library call;
+ 14. 8 stage-2 steps with the counts set to 0 just before: finite loss,
+     grads and params, n_dropped == 0, scatter_add_sorted and blend_bwd once
+     a step, ms per step; one step run twice bit-identical; one
+     grow_keypoints_from_grads event (100 < keypoints <= 200), one more step;
+ 15. the 2->3 transition and 8 stage-3 steps from iteration 40001 with the
+     same checks, the loss falling from the first step to the last;
+ 16. a torch.profiler breakdown of one stage-2 step (the kernel, the sorts
+     and the gathers by name), then the encoder's gather (and the 2-d
+     index_select it replaces, checked equal) and the table gradient's
+     stable sort, each timed alone with CUDA events;
+ 17. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
   python3 chip_smoke.py                # on a machine with one CUDA card
   python3 chip_smoke.py --rehearse     # the same phases on the CPU at 2k
-                                       # Gaussians and 128x128 (3 stage-1
-                                       # steps), plain versions, no result
+                                       # Gaussians and 128x128 (3 steps a
+                                       # stage), plain versions, no result
                                        # line
 """
 from __future__ import annotations
@@ -76,6 +96,7 @@ REPLACES = {
     "blend_bwd": "gaussianprediction_tpu/ops/rasterize_pallas.py:448",
     "cumsum_channels": "gaussianprediction_tpu/ops/scan_pallas.py:84",
     "cumsum_rows": "gaussianprediction_tpu/ops/scan_pallas.py:49",
+    "scatter_add_sorted": "gaussianprediction_tpu/ops/hashgrid_pallas.py:49",
 }
 SOURCES = {
     "stack": "gaussianprediction_tpu_torch/kernels/csrc/stack_rows.cu",
@@ -87,6 +108,8 @@ SOURCES = {
     "cumsum_channels":
         "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
     "cumsum_rows": "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
+    "scatter_add_sorted":
+        "gaussianprediction_tpu_torch/kernels/csrc/scatter_add_sorted.cu",
 }
 # the __global__ functions of each kernel, as torch.profiler names them
 # (the scan is three: block sums, their scan, the block scans)
@@ -99,6 +122,7 @@ DEVICE_NAMES = {
     "blend_bwd": ("blend_bwd_kernel",),
     "cumsum_channels": SCAN_FUNCS,
     "cumsum_rows": SCAN_FUNCS,
+    "scatter_add_sorted": ("mark_heads_kernel", "reduce_runs_kernel"),
 }
 FWD_KERNELS = ("stack", "expand", "interleave", "blend_fwd")
 EPS32 = 2.0 ** -24
@@ -376,12 +400,15 @@ def oracle_check(dev, seed: int) -> None:
         raise AssertionError("render disagrees with the oracle")
 
 
-def profile(run, dev, label: str, reps: int = 3, top: int = 15) -> dict:
+def profile(run, dev, label: str, reps: int = 3, top: int = 15,
+            named=None) -> dict:
     """Device time by kernel over `reps` calls of run() and the device's
     busy share of that window (torch.profiler; CUPTI). Only device-side
     events are summed: an operator's own row would count its kernels a
     second time. Returns each ported kernel's mean device ms per launch
-    (the sum over its __global__ functions; None when not launched)."""
+    (the sum over its __global__ functions; None when not launched).
+    named: {label: substrings}; prints the device ms per call of run() of
+    the kernels whose names hold any of the substrings."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     run()
@@ -409,6 +436,12 @@ def profile(run, dev, label: str, reps: int = 3, top: int = 15) -> dict:
         f"%), {sum(r[1] for r in rows):.0f} kernels")
     for ms, count, key in rows[:top]:
         log(f"  {ms:9.4f} ms  x{count:<5.1f} {key[:100]}")
+    for lbl, subs in (named or {}).items():
+        hits = [(ms, c, key) for ms, c, key in rows
+                if any(x in key for x in subs)]
+        log(f"  {lbl}: {sum(h[0] for h in hits):.4f} ms in "
+            f"{sum(h[1] for h in hits):.0f} kernels "
+            f"{sorted({h[2][:60] for h in hits})}")
     device_ms = {}
     for name, funcs in DEVICE_NAMES.items():
         per = []
@@ -531,23 +564,38 @@ def finite_tree(tree) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
 
 
+def checked(out, what):
+    """A step's (state, opt_state, metrics), after checking n_dropped == 0
+    and a finite loss, gradients and params."""
+    st, op, m = out
+    if int(m["n_dropped"]) != 0:
+        raise AssertionError(f"{what}: n_dropped {int(m['n_dropped'])}")
+    if not (torch.isfinite(m["loss"]) and finite_tree(m["grads"])
+            and finite_tree(st.params)):
+        raise AssertionError(f"{what}: non-finite loss, grads or params")
+    return out
+
+
 def diagnose_nondeterminism(run) -> str:
     """Run the step twice with every kernel wrapper's and the stream
     reduction's outputs captured; name the first that differs."""
     from gaussianprediction_tpu_torch.ops import expand as E
+    from gaussianprediction_tpu_torch.ops import hashgrid_kernels as HK
     from gaussianprediction_tpu_torch.ops import instance_stream as IS
     from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
 
     targets = [(E, "stack_rows"), (E, "expand_emit"),
                (E, "interleave_rows"), (rk, "rasterize_binned"),
-               (rk, "rasterize_binned_bwd"), (IS, "build_instances_bwd")]
+               (rk, "rasterize_binned_bwd"), (IS, "build_instances_bwd"),
+               (HK, "scatter_add_sorted")]
     outs = []
     for _ in range(2):
         with Capture(targets) as cap:
             metrics = run()[2]
         outs.append((cap.out, metrics["grads"]))
     for _, name in targets:
-        if not torch.equal(outs[0][0][name], outs[1][0][name]):
+        if name in outs[0][0] and not torch.equal(outs[0][0][name],
+                                                  outs[1][0][name]):
             return name
     for key in outs[0][1]:
         from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
@@ -560,9 +608,10 @@ def diagnose_nondeterminism(run) -> str:
 
 def train_phases(cfg, dev, n: int, size: int, seed: int, views, bg,
                  rehearse: bool, reps: int):
-    """Phases 8-11. Returns (res, launches, device_ms) for the kernels
-    line: the kernel checks, each kernel's launch count from the run of
-    its path, and each kernel's device ms per launch in a profiled step."""
+    """Phases 8-11. Returns (res, launches, device_ms, ctx): for the
+    kernels line the kernel checks, each kernel's launch count from the
+    run of its path and each kernel's device ms per launch in a profiled
+    step; ctx, the trained stage-1 state and the view for stages 2/3."""
     import copy
 
     from gaussianprediction_tpu_torch import kernels
@@ -617,15 +666,6 @@ def train_phases(cfg, dev, n: int, size: int, seed: int, views, bg,
         log(f"training: {n} live of {C} Gaussians, {size}x{size}, slot need "
             f"{need}, capacity_multiplier {cfg.model.capacity_multiplier}, "
             f"target = render of the --seed {seed + 1} model")
-
-    def checked(out, what):
-        st, op, m = out
-        if int(m["n_dropped"]) != 0:
-            raise AssertionError(f"{what}: n_dropped {int(m['n_dropped'])}")
-        if not (torch.isfinite(m["loss"]) and finite_tree(m["grads"])
-                and finite_tree(st.params)):
-            raise AssertionError(f"{what}: non-finite loss, grads or params")
-        return out
 
     with Phase("first training step (stage 0): kernels vs plain versions"):
         with Capture([(rk, "rasterize_binned_bwd"),
@@ -746,7 +786,258 @@ def train_phases(cfg, dev, n: int, size: int, seed: int, views, bg,
                 del os.environ["GPT_BWD_REDUCE"]
             device_ms[name] = dm[name]
         log(f"  blend_bwd device ms per launch {device_ms['blend_bwd']}")
-    return res, launches, device_ms
+    ctx = dict(cfg=cfg, state=state, opt=opt, cam=cam, gt=gt, t=t,
+               bg_t=bg_t, extent=extent, C=C, gen=gen)
+    return res, launches, device_ms, ctx
+
+
+def check_scatter_kernel(cap, dev, reps: int):
+    """scatter_add_sorted beside its plain version on the first stage-2
+    step's table-gradient stream: within 64 * 2^-24 * Σ|contributions| of
+    each slot, two launches bit-identical; also against the serial sum on
+    the CPU (the plain version's own order) bit for bit, reported."""
+    from gaussianprediction_tpu_torch.ops import hashgrid_kernels as HK
+
+    (keys, vals, n_slots), _ = cap.args["scatter_add_sorted"]
+    F, M = vals.shape
+    a = HK.scatter_add_sorted(keys, vals, n_slots)
+    b = HK.scatter_add_sorted(keys, vals, n_slots)
+    sync(dev)
+    if not torch.equal(a, b):
+        raise AssertionError("scatter_add_sorted: two launches differ")
+    t0 = time.perf_counter()
+    ref = HK.scatter_add_sorted_plain(keys, vals, n_slots)
+    sync(dev)
+    plain_once = (time.perf_counter() - t0) * 1e3
+    absum = HK.scatter_add_sorted_plain(keys, vals.abs(), n_slots)
+    tol = 64 * EPS32 * absum
+    err = (a - ref).abs()
+    n_out = int((err > tol).sum())
+    t0 = time.perf_counter()
+    serial = HK.scatter_add_sorted_plain(keys.cpu(), vals.cpu(), n_slots)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    lib = lambda: torch.zeros((F, n_slots), device=dev).index_add_(  # noqa
+        1, keys, vals)
+    lib_err = float((lib() - a).abs().max())
+    empty = int((absum == 0).all(dim=0).sum())
+    log(f"scatter_add_sorted: M {M}, F {F}, slots {n_slots} ({empty} "
+        f"empty); bit-identical across 2 launches; max |err| vs plain "
+        f"{float(err.max()):.3e}, {n_out} slots beyond 64 * 2^-24 * "
+        f"sum|v|; equal to the serial CPU sum bit for bit "
+        f"{torch.equal(a.cpu(), serial)} (CPU {cpu_ms:.1f} ms); index_add_ "
+        f"max |diff| {lib_err:.3e}; plain once {plain_once:.3f} ms")
+    if n_out:
+        raise AssertionError("scatter_add_sorted disagrees with its plain "
+                             "version")
+    res = {"scatter_add_sorted": dict(
+        max_abs_err=float(err.max()),
+        ms=time_ms(lambda: HK.scatter_add_sorted(keys, vals, n_slots), dev,
+                   reps),
+        plain_ms=time_ms(lambda: HK.scatter_add_sorted_plain(
+            keys, vals, n_slots), dev, reps),
+        library_ms=time_ms(lib, dev, reps),
+        # keys and values read once, the table written once; F adds each
+        bytes=M * (4 + 4 * F) + F * n_slots * 4, ops=M * F,
+    )}
+    add_bounds(res)
+    return res
+
+
+def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
+    """Phases 12-16 on the trained stage-1 state: the 1->2 transition,
+    kernel #7 against its plain version, stage-2 steps with a keypoint
+    growth event, the 2->3 transition and stage-3 steps, a profile of one
+    stage-2 step. Returns (res, launches, device_ms) for the kernels
+    line."""
+    import copy
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.models.gaussians import weight_model
+    from gaussianprediction_tpu_torch.ops import hashgrid as HG
+    from gaussianprediction_tpu_torch.ops import hashgrid_kernels as HK
+    from gaussianprediction_tpu_torch.ops.instance_stream import (
+        probe_slot_need,
+    )
+    from gaussianprediction_tpu_torch.train import densify as DN
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.loop import stage_transition
+    from gaussianprediction_tpu_torch.train.step import (
+        deform_for_stage, make_train_step, stage_of,
+    )
+
+    cfg = copy.deepcopy(ctx["cfg"])
+    state, opt = ctx["state"], ctx["opt"]
+    cam, gt, t, bg_t = ctx["cam"], ctx["gt"], ctx["t"], ctx["bg_t"]
+    extent, C, gen = ctx["extent"], ctx["C"], ctx["gen"]
+    size = gt.shape[0]
+    sh = cfg.model.sh_degree
+    s2, s3 = cfg.train.second_stage_iteration, cfg.train.third_stage_iteration
+    it2, it3 = s2 + 1, s3 + 1
+    assert stage_of(cfg, it2) == 2 and stage_of(cfg, it3) == 3
+    nsteps = 3 if rehearse else 8
+
+    def run_steps(step, st, op, it0, what):
+        losses, ms = [], []
+        for k in range(nsteps):
+            if dev.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = step(st, op, cam, gt, t, it0 + k, gen())
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            else:
+                t0 = time.perf_counter()
+                out = step(st, op, cam, gt, t, it0 + k, gen())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            st, op, m = checked(out, f"{what} step {k}")
+            losses.append(float(m["loss"]))
+        sync(dev)
+        log(f"{what} steps: loss {[round(x, 6) for x in losses]}")
+        log(f"{what}: ms per step {[round(x, 3) for x in ms]}; median of "
+            f"steps 2-{nsteps}: {float(np.median(ms[1:])):.3f} ms")
+        return st, op, losses
+
+    def twice(step, st, op, it, what):
+        run = lambda: step(st, op, cam, gt, t, it, gen())  # noqa: E731
+        a, b = run(), run()
+        same = torch.equal(a[2]["loss"], b[2]["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(O.tree_leaves(a[0].params),
+                                              O.tree_leaves(b[0].params)))
+        log(f"{what}: one step run twice from the same state: identical "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{what}: a step run twice differs; first "
+                                 f"op that differs: "
+                                 f"{diagnose_nondeterminism(run)}")
+
+    def launched(what):
+        got = dict(kernels.launch_counts)
+        log(f"{what}: launches {got}")
+        if not rehearse:
+            for k in ("scatter_add_sorted", "blend_bwd"):
+                if got.get(k, 0) != nsteps:
+                    raise AssertionError(f"{what}: {k} launched "
+                                         f"{got.get(k, 0)} times in "
+                                         f"{nsteps} steps")
+        return got
+
+    with Phase("stage 1 -> 2: keypoints by k-means"):
+        rng = np.random.default_rng(seed + 7)
+        params = dict(state.params)
+        # a smooth, non-zero motion feature over space, as training leaves
+        proj = torch.as_tensor(rng.normal(0, 2.0, (3, cfg.model.feature_dim)),
+                               dtype=torch.float32, device=dev)
+        feat = 0.1 * torch.sin(params["xyz"] @ proj)
+        params["motion_feature"] = torch.where(state.alive[:, None], feat,
+                                               torch.zeros_like(feat))
+        tables, wmlp = weight_model(cfg, rng)
+        to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        params["hash_tables"] = {k: to(v) for k, v in tables.items()}
+        params["weight_mlp"] = [{k: to(v) for k, v in layer.items()}
+                                for layer in wmlp]
+        Ck = cfg.model.kpt_capacity()
+        params["super_xyz"] = torch.ones((Ck, 3), device=dev)
+        params["super_feature"] = torch.ones((Ck, cfg.model.feature_dim),
+                                             device=dev)
+        state = state.replace(params=params, kpt_alive=torch.zeros(
+            (Ck,), dtype=torch.bool, device=dev))
+        state, opt = stage_transition(state, opt, cfg, it2,
+                                      generator=gen())
+        sync(dev)
+        nk = int(state.n_kpts())
+        log(f"transition at iteration {it2}: {nk} keypoints alive of {Ck}; "
+            f"hash tables {sum(v.shape[0] for v in tables.values())} slots "
+            f"x {cfg.model.hash_features}")
+        if nk != cfg.model.max_points or not finite_tree(state.params):
+            raise AssertionError("the stage-2 transition failed")
+        need = 0
+        with torch.no_grad():
+            for it in (it2, it3):
+                d = deform_for_stage(state.params, cfg, state, t, it, gen(),
+                                     stage_of(cfg, it))
+                need = max(need, int(probe_slot_need(
+                    d.xyz, d.scaling, d.rotation, d.opacity, cam, size,
+                    size, alive=state.alive)))
+        cfg.model.capacity_multiplier = max(
+            cfg.model.capacity_multiplier, -(-int(need * 1.3) // C))
+        log(f"stage-2/3 slot need {need}, capacity_multiplier "
+            f"{cfg.model.capacity_multiplier}")
+        step2 = make_train_step(cfg, 2, size, size, extent, sh, 50, bg_t)
+        step3 = make_train_step(cfg, 3, size, size, extent, sh, 50, bg_t)
+
+    with Phase("first stage-2 step: scatter_add_sorted vs plain version"):
+        with Capture([(HK, "scatter_add_sorted")]) as cap:
+            state, opt, m = checked(step2(state, opt, cam, gt, t, it2,
+                                          gen()), "first stage-2 step")
+        sync(dev)
+        log(f"first stage-2 step: loss {float(m['loss']):.6f}")
+        with torch.no_grad():
+            res = check_scatter_kernel(cap, dev, reps)
+
+    with Phase(f"training ({nsteps} stage-2 steps, keypoint growth)"):
+        kernels.reset_launch_counts()
+        state, opt, _ = run_steps(step2, state, opt, it2 + 1, "stage-2")
+        launches = launched("stage-2")
+        twice(step2, state, opt, it2 + 1 + nsteps, "stage-2")
+        nk0 = int(state.n_kpts())
+        state, opt = DN.grow_keypoints_from_grads(
+            state, opt, cfg, max(cfg.model.adaptive_points_num, 1))
+        nk1 = int(state.n_kpts())
+        log(f"keypoint growth: {nk0} -> {nk1} of {Ck}")
+        if not nk0 < nk1 <= Ck:
+            raise AssertionError("keypoint growth failed")
+        state, opt, m = checked(step2(state, opt, cam, gt, t,
+                                      it2 + 1 + nsteps, gen()),
+                                "step after keypoint growth")
+        log(f"step after keypoint growth: loss {float(m['loss']):.6f}")
+
+    with Phase(f"stage 2 -> 3, {nsteps} stage-3 steps"):
+        state, opt = stage_transition(state, opt, cfg, it3)
+        if int(opt["step"]) != 0:
+            raise AssertionError("the stage-3 transition kept Adam's state")
+        kernels.reset_launch_counts()
+        state, opt, losses = run_steps(step3, state, opt, it3, "stage-3")
+        launched("stage-3")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the stage-3 loss did not fall")
+        twice(step3, state, opt, it3 + nsteps, "stage-3")
+
+    with Phase("profile (one stage-2 step)"):
+        dm = profile(lambda: step2(state, opt, cam, gt, t, it2, gen()), dev,
+                     "one stage-2 step", named={
+                         "scatter_add_sorted": DEVICE_NAMES[
+                             "scatter_add_sorted"],
+                         # every sort of the step: the table gradient's
+                         # [16, 8N] keys, the tile sort, the stream's sort
+                         "sorts": ("sort", "Sort"),
+                         "gathers and indexing": ("ather", "ndex"),
+                     })
+        log(f"  scatter_add_sorted device ms per launch "
+            f"{dm['scatter_add_sorted']}")
+        # the encoder's own pieces, timed alone on this step's inputs
+        m = cfg.model
+        tables = state.params["hash_tables"]
+        specs, _ = HG.hashgrid_specs(tables, m.hash_min_res, m.hash_max_res)
+        keys, _ = HG.hashgrid_keys_weights(state.params["xyz"], specs,
+                                           m.hash_bound)
+        flat = HG._flat_tables(tables)
+        kflat = keys.reshape(-1)
+        rows = HG._gather_rows(flat, kflat)
+        if not torch.equal(rows, flat.index_select(0, kflat)):
+            raise AssertionError("the encoder's gather != index_select")
+        kl = keys.reshape(keys.shape[0], -1)
+        t_rows = time_ms(lambda: HG._gather_rows(flat, kflat), dev, reps)
+        t_2d = time_ms(lambda: flat.index_select(0, kflat), dev, 3)
+        t_sort = time_ms(lambda: torch.sort(kl, dim=1, stable=True), dev,
+                         reps)
+        log(f"  encoder gather of {kflat.shape[0]} rows of {flat.shape[1]}"
+            f" f32 (one complex128 element a row): {t_rows:.4f} ms; the "
+            f"same rows by a 2-d index_select: {t_2d:.4f} ms; the table "
+            f"gradient's stable sort of {list(kl.shape)} int32 keys: "
+            f"{t_sort:.4f} ms")
+    return res, launches, {"scatter_add_sorted": dm["scatter_add_sorted"]}
 
 
 def main() -> int:
@@ -869,11 +1160,16 @@ def main() -> int:
             log(f"  kernel {name}: device ms per launch {device_ms[name]}")
         device_ms = {k: device_ms[k] for k in FWD_KERNELS}
 
-    tres, tlaunches, tdevice_ms = train_phases(
+    tres, tlaunches, tdevice_ms, ctx = train_phases(
         cfg, dev, n, size, args.seed, views, bg, args.rehearse, reps)
     res.update(tres)
     launches.update({k: tlaunches.get(k, 0) for k in tres})
     device_ms.update({k: tdevice_ms[k] for k in tres})
+    sres, slaunches, sdevice_ms = stage23_phases(ctx, dev, args.seed,
+                                                 args.rehearse, reps)
+    res.update(sres)
+    launches.update({k: slaunches.get(k, 0) for k in sres})
+    device_ms.update(sdevice_ms)
 
     line = {"kernels": [
         {

@@ -2,9 +2,11 @@
 
 state_from_params takes `GaussianState.params` as a nested dict of numpy
 arrays (xyz, features_dc, features_rest, scaling, rotation, opacity,
-motion_feature, df_mlp=[{w, b}, ...], ...) or with the flattened
-"a/b/0/w" names of gaussianprediction_tpu/train/checkpoint.py:_flatten,
-plus the `alive` mask and, optionally, the densification statistics, and
+motion_feature, df_mlp=[{w, b}, ...], the keypoints super_xyz and
+super_feature, the weight model hash_tables={level_l: ...} and
+weight_mlp=[{w, b}, ...]) or with the flattened "a/b/0/w" names of
+gaussianprediction_tpu/train/checkpoint.py:_flatten, plus the `alive`
+mask, optionally `kpt_alive` and the densification statistics, and
 returns the port's GaussianState on a device. opt_state_from_arrays
 carries the JAX Adam state ({"m", "v", "step"}) across the same way.
 load_jax_checkpoint reads a .npz checkpoint of the JAX package directly:

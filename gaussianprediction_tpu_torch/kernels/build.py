@@ -1,6 +1,7 @@
-"""Build the CUDA kernels with one nvcc call and load them with ctypes.
+"""Build the CUDA kernels with nvcc and load them with ctypes.
 
-All csrc/*.cu files go through a single nvcc invocation into
+Each csrc/*.cu file is compiled to an object by its own nvcc process, all
+started together, and one more nvcc call links the objects into
 build/gpt_torch/libgpt_kernels-<hash>.so at the root of the checkout; the
 hash covers the sources, the headers and the flags, so an edited source
 builds anew and an unchanged one is loaded as it is. The sources include no
@@ -25,10 +26,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpt_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "gpt_blend_bwd": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
                       ctypes.c_int, _P, _P, _P],
     "gpt_cumsum_rows": [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P],
+    "gpt_scatter_add_sorted": [_P, _P, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_int, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -86,17 +88,40 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    objdir = BUILD_DIR / f"obj-{_digest()}-{os.getpid()}"
+    objdir.mkdir()
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    try:
+        for src in sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                   str(objdir / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+                *[c[-2] for c, _ in jobs]]
+        log, failed = "", []
+        for cmd, proc in jobs:
+            log += proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(link)} ({proc.returncode})")
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed: {'; '.join(failed)}\n{log}")
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(objdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
     os.replace(tmp, out)
     build_info.update(path=str(out), seconds=seconds, log=log, cached=False)
     return out

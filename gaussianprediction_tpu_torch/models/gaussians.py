@@ -5,10 +5,12 @@ the JAX package's capacity padding: `params` holds [C, ...] tensors (and
 the deform MLP as a list of {"w", "b"} layers) and `alive` marks the live
 rows. Conventions are the reference's: scaling stored as log (exp
 activation), opacity as logit (sigmoid), rotation unnormalized wxyz,
-SH split into dc/rest. The densification statistics ride on the state
-as in the JAX package; create_from_pcd builds the stage-0/1 parameters
-from a point cloud (the stage-2/3 weight model waits for that slice), and
-convert.py builds states from the JAX package's arrays.
+SH split into dc/rest; the keypoints ("super Gaussians") of stages 2/3
+sit in a second padded buffer with their own mask, `kpt_alive`. The
+densification statistics ride on the state as in the JAX package;
+create_from_pcd builds the parameters from a point cloud, the blend-weight
+model of stages 2/3 (hash tables and weight MLP) included, and convert.py
+builds states from the JAX package's arrays.
 """
 from __future__ import annotations
 
@@ -54,8 +56,18 @@ class GaussianState:
         return self.params["xyz"].shape[0]
 
     @property
+    def kpt_capacity(self) -> int:
+        return self.params["super_xyz"].shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.params["xyz"].device
+
+    def n_alive(self):
+        return torch.sum(self.alive)
+
+    def n_kpts(self):
+        return torch.sum(self.kpt_alive)
 
 
 def scaling_act(s):
@@ -92,19 +104,41 @@ def deform_mlp_sizes(cfg: Config):
             + [cfg.model.w] * cfg.model.d + [delta_dim])
 
 
+def weight_model(cfg: Config, rng: np.random.Generator):
+    """The blend-weight model of stages 2/3, drawn with numpy: (hash
+    tables {"level_l": [size_l, F]}, weight MLP [L*F] + [64]*2 + [2K]).
+    Only the `hashgrid` encoder is ported; `brick` and `fourier` raise."""
+    from gaussianprediction_tpu_torch.ops.hashgrid import init_hashgrid
+    from gaussianprediction_tpu_torch.ops.mlp import init_mlp
+
+    m = cfg.model
+    if m.weight_encoder != "hashgrid":
+        raise NotImplementedError(
+            f"weight_encoder={m.weight_encoder!r} is not ported yet "
+            "(ROADMAP.md, Queue 1)")
+    tables = init_hashgrid(rng, n_levels=m.hash_levels,
+                           n_features=m.hash_features, log2_T=m.hash_log2_T,
+                           n_min=m.hash_min_res, max_res=m.hash_max_res)
+    n_feat = sum(t.shape[1] for t in tables.values())
+    mlp = init_mlp(rng, [n_feat] + [m.weight_mlp_width] * m.weight_mlp_depth
+                   + [2 * m.nearest_num])
+    return tables, mlp
+
+
 def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
                     generator: Optional[torch.Generator] = None,
-                    motion_feature=None, df_mlp=None,
-                    device=None) -> GaussianState:
+                    motion_feature=None, df_mlp=None, hash_tables=None,
+                    weight_mlp=None, device=None) -> GaussianState:
     """The model from a point cloud, padded to capacity (the JAX package's
-    create_from_pcd for stages 0-1): the first min(len(points), C) rows
-    alive, scales log(sqrt(mean squared distance to the 3 nearest
-    points)), SH dc from the colours, identity rotations, opacity 0.1
-    (dead rows -15, scale -10).
+    create_from_pcd): the first min(len(points), C) rows alive, scales
+    log(sqrt(mean squared distance to the 3 nearest points)), SH dc from
+    the colours, identity rotations, opacity 0.1 (dead rows -15, scale
+    -10); keypoint rows of ones, none alive; the blend-weight model.
 
-    The random parts, motion_feature ([C, F], U(-1e-3, 1e-3)) and the
-    deform MLP, are drawn from `generator` (a torch.Generator on the
-    host) unless given: tests pass the JAX package's draws."""
+    The random parts, motion_feature ([C, F], U(-1e-3, 1e-3)), the deform
+    MLP, the hash tables and the weight MLP, are drawn from `generator` (a
+    torch.Generator on the host) unless given: tests pass the JAX
+    package's draws."""
     from gaussianprediction_tpu_torch.device import resolve_device
     from gaussianprediction_tpu_torch.ops.knn import mean_knn_sq_dist
     from gaussianprediction_tpu_torch.ops.mlp import init_mlp
@@ -145,6 +179,11 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
     if df_mlp is None:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         df_mlp = init_mlp(np.random.default_rng(seed), deform_mlp_sizes(cfg))
+    if hash_tables is None or weight_mlp is None:
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        tables, wmlp = weight_model(cfg, np.random.default_rng(seed))
+        hash_tables = tables if hash_tables is None else hash_tables
+        weight_mlp = wmlp if weight_mlp is None else weight_mlp
     to = lambda x: torch.as_tensor(np.array(x, np.float32),  # noqa: E731
                                    device=dev)
     params = {
@@ -159,6 +198,9 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
         "super_xyz": torch.ones((Ck, 3), dtype=f32, device=dev),
         "super_feature": torch.ones((Ck, F), dtype=f32, device=dev),
         "df_mlp": [{k: to(v) for k, v in layer.items()} for layer in df_mlp],
+        "hash_tables": {k: to(v) for k, v in hash_tables.items()},
+        "weight_mlp": [{k: to(v) for k, v in layer.items()}
+                       for layer in weight_mlp],
     }
     return GaussianState(params=params, alive=alive,
                          kpt_alive=torch.zeros((Ck,), dtype=torch.bool,

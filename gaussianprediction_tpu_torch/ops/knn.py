@@ -3,8 +3,10 @@
 Torch twin of gaussianprediction_tpu/ops/knn.py (knn, mean_knn_sq_dist):
 squared distances as ||q||^2 + ||p||^2 - 2 q.p clamped at 0 (the JAX
 package's formula, so the values agree to f32 roundoff), invalid points
-at +inf, the k smallest by torch.topk, blocked over query rows. The 35-d
-hybrid KNN of stages 2/3 waits for that slice.
+at +inf, the k smallest by torch.topk, blocked over query rows; and the
+35-d hybrid KNN of stages 2/3 (hybrid_knn). lax.top_k breaks ties toward
+the lower index and torch.topk makes no promise: the two agree wherever
+neighbouring distances differ by more than roundoff.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ def knn(queries, points, k: int, query_valid=None, point_valid=None,
     """Exact k nearest neighbours: (sq_dists [Nq, k], idx [Nq, k] int32).
     Invalid points are never chosen; invalid queries get dist inf and
     index 0."""
-    inf = torch.tensor(float("inf"), device=queries.device)
+    inf = float("inf")
     ds, ids = [], []
     for i in range(0, queries.shape[0], block):
         d = _sq_dists(queries[i:i + block], points)
@@ -44,3 +46,13 @@ def mean_knn_sq_dist(points, k: int = 3, valid=None, block: int = 4096):
     d, _ = knn(points, points, k + 1, query_valid=valid, point_valid=valid,
                block=block)
     return torch.mean(d[:, 1:], dim=-1)
+
+
+def hybrid_knn(xyz, feat, kpt_xyz, kpt_feat, k: int, feature_amplify: float,
+               point_valid=None, query_valid=None, block: int = 4096):
+    """The reference's "hybird" KNN: the k nearest keypoints in the
+    concatenated space [xyz, motion_feature * amplify]."""
+    q = torch.cat([xyz, feat * feature_amplify], dim=-1)
+    p = torch.cat([kpt_xyz, kpt_feat * feature_amplify], dim=-1)
+    return knn(q, p, k, query_valid=query_valid, point_valid=point_valid,
+               block=block)

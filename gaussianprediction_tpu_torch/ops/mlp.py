@@ -1,7 +1,7 @@
-"""The small ReLU MLP of the deformation field.
+"""The small ReLU MLPs of the deformation field and the blend weights.
 
 Torch twin of gaussianprediction_tpu/ops/hashgrid.py:init_mlp and
-mlp_apply (the hash-grid encoders wait for the stage-2/3 port). Layers are
+mlp_apply (the hash-grid encoder is ops/hashgrid.py). Layers are
 a list of {"w": [fan_in, fan_out], "b": [fan_out]} dicts, the JAX layout,
 so weights carry across without transposes.
 """

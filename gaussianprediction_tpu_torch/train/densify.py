@@ -1,12 +1,13 @@
 """Densification and pruning as masked writes over the static capacity.
 
-Torch twin of the stage-0/1 part of gaussianprediction_tpu/train/
-densify.py: clone copies selected rows into free slots (Adam moments
-zeroed there), split writes two resampled children into free slots and
-kills the parent, prune clears `alive`, reset_opacity clamps opacity and
-zeroes its moments. Free slots are assigned by rank (a cumsum over the
-free mask), so the result is deterministic. Functional: inputs are left as
-they were. Keypoint growth (it needs FPS) waits for the stage-2/3 slice.
+Torch twin of gaussianprediction_tpu/train/densify.py: clone copies
+selected rows into free slots (Adam moments zeroed there), split writes
+two resampled children into free slots and kills the parent, prune clears
+`alive`, reset_opacity clamps opacity and zeroes its moments; keypoint
+growth (stages 2/3) writes furthest-point samples of the Gaussians that
+need motion detail into free keypoint rows. Free slots are assigned by
+rank (a cumsum over the free mask), so the result is deterministic.
+Functional: inputs are left as they were.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from gaussianprediction_tpu_torch.config import Config
 from gaussianprediction_tpu_torch.models.gaussians import (
     GaussianState, opacity_act, scaling_act,
 )
+from gaussianprediction_tpu_torch.ops.fps import furthest_point_sampling
 from gaussianprediction_tpu_torch.utils.math import (
     inverse_sigmoid, quat_to_rotmat,
 )
@@ -26,6 +28,7 @@ PER_GAUSSIAN = (
     "xyz", "features_dc", "features_rest", "opacity", "scaling",
     "rotation", "motion_feature", "opacity_thres",
 )
+PER_KPT = ("super_xyz", "super_feature")
 
 
 def _rank_to_slot(free):
@@ -154,3 +157,74 @@ def reset_opacity(state: GaussianState, opt_state):
         opt_state[mom]["opacity"] = torch.zeros_like(
             opt_state[mom]["opacity"])
     return state.replace(params=params), opt_state
+
+
+def grow_keypoints_from_grads(state: GaussianState, opt_state, cfg: Config,
+                              max_new: int, ratio: int = 100):
+    """Gradient-driven keypoint growth (the reference's densify_kpts):
+    furthest-point samples of the live Gaussians whose mean screen-space
+    gradient passes densify_grad_threshold become new keypoints with
+    their motion features. max_new: the sample budget."""
+    mask = state.alive & (_grads_from_stats(state)
+                          > cfg.opt.densify_grad_threshold)
+    return _grow_keypoints(state, opt_state, max_new, mask, ratio)
+
+
+def grow_keypoints_from_teaching(state: GaussianState, opt_state,
+                                 cfg: Config, max_new: int,
+                                 ratio: int = 100):
+    """Teacher-guided keypoint growth: the same over the Gaussians whose
+    blended motion strayed from their stage-1 motion by at least
+    teaching_threshold (xyz_motion_accum_max, kept by the step)."""
+    mask = state.alive & (state.xyz_motion_accum_max
+                          >= cfg.train.teaching_threshold)
+    return _grow_keypoints(state, opt_state, max_new, mask, ratio)
+
+
+def _grow_keypoints(state: GaussianState, opt_state, max_new: int, mask,
+                    ratio: int):
+    """count // ratio new keypoints (at least 1 when any Gaussian is
+    selected; at most the free keypoint rows and max_new) by FPS over the
+    masked Gaussians' xyz, written into the free rows in rank order with
+    their Adam moments zeroed. Every statistic resets."""
+    params = state.params
+    dev = state.device
+    count = torch.sum(mask)
+    select = torch.where(count > ratio, count // ratio,
+                         torch.ones_like(count))
+    kpt_free = ~state.kpt_alive
+    select = torch.clamp(torch.minimum(select, torch.sum(kpt_free)),
+                         max=max_new)
+    select = torch.where(count >= 1, select, torch.zeros_like(select))
+
+    fps_idx = furthest_point_sampling(params["xyz"], max_new,
+                                      valid=mask).to(torch.int64)
+    ar = torch.arange(max_new, device=dev)
+    Ck = state.kpt_capacity
+    dst = _rank_to_slot(kpt_free)[torch.clamp(ar, max=Ck - 1)]
+    write = (ar < select) & (dst < Ck)
+    src, dst = fps_idx[write], dst[write].to(torch.int64)
+    params = dict(params)
+    for k, from_k in (("super_xyz", "xyz"),
+                      ("super_feature", "motion_feature")):
+        rows = params[k].clone()
+        rows[dst] = params[from_k][src]
+        params[k] = rows
+    opt_state = {**opt_state, "m": dict(opt_state["m"]),
+                 "v": dict(opt_state["v"])}
+    for mom in ("m", "v"):
+        for k in PER_KPT:
+            m = opt_state[mom][k].clone()
+            m[dst] = 0.0
+            opt_state[mom][k] = m
+    kpt_alive = state.kpt_alive.clone()
+    kpt_alive[dst] = True
+
+    C = state.capacity
+    zeros = lambda dt=torch.float32: torch.zeros(  # noqa: E731
+        (C,), dtype=dt, device=dev)
+    return state.replace(
+        params=params, kpt_alive=kpt_alive, xyz_gradient_accum=zeros(),
+        xyz_gradient_accum_max=zeros(), denom=zeros(),
+        xyz_motion_accum_max=zeros(), motion_denom=zeros(),
+        max_radii2D=zeros(torch.int32)), opt_state

@@ -1,17 +1,19 @@
-"""Training step for stages 0 and 1, and the deform + render entry.
+"""The training step of every stage, and the deform + render entry.
 
 Torch twin of gaussianprediction_tpu/train/step.py (time_with_noise,
-deform_for_stage, render_at_time, make_train_step) and of
-train/loop.py:stage_of. One step: time noise; deform (stage 0: the
-canonical Gaussians, stage 1: the per-Gaussian deform MLP); render with the
-NDC-scale means2d carrier; loss = (1-λ)L1 + λ(1-SSIM) + the motion-feature
-regularizer; backward (the blend and instance-stream kernels' own
-backward); the densification statistics from the carrier's gradient
-norm; masked per-group Adam.
+deform_for_stage, render_at_time, make_train_step). One step: time noise;
+deform (stage 0: the canonical Gaussians, stage 1: the per-Gaussian deform
+MLP, stages 2/3: the keypoint blend through the hash-grid weight model);
+render with the NDC-scale means2d carrier; loss = (1-λ)L1 + λ(1-SSIM) +
+the motion-feature regularizer; backward (the blend, instance-stream and
+table-gradient kernels' own backward); the densification statistics from
+the carrier's gradient norm (from stage 2 on also inside the keypoint-
+growth window, and the teacher residual under densify_from_teaching);
+masked per-group Adam.
 
 Random draws come from a torch.Generator, or are passed pre-drawn (the
-parity tests hand both packages the same N(0,1) draws). Stages 2/3, the
-batched steps and the Trainer loop wait for later slices (ROADMAP.md).
+parity tests hand both packages the same N(0,1) draws). The batched steps
+and the Trainer loop wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,20 +28,11 @@ from gaussianprediction_tpu_torch.models.gaussians import (
 )
 from gaussianprediction_tpu_torch.ops import rasterize
 from gaussianprediction_tpu_torch.train import optimizer as opt_mod
+from gaussianprediction_tpu_torch.train.loop import stage_of  # noqa: F401
 from gaussianprediction_tpu_torch.utils.image import (
     dssim_l1_loss, l1_loss, psnr,
 )
 from gaussianprediction_tpu_torch.utils.schedules import linear_anneal
-
-
-def stage_of(cfg: Config, iteration: int) -> int:
-    if iteration < cfg.train.jointly_iteration:
-        return 0
-    if iteration <= cfg.train.second_stage_iteration:
-        return 1
-    if iteration <= cfg.train.third_stage_iteration:
-        return 2
-    return 3
 
 
 def _randn(shape, generator: Optional[torch.Generator], device):
@@ -56,23 +49,25 @@ def deform_for_stage(params, cfg: Config, state: GaussianState, t,
     if stage == 1:
         return D.deform_stage1(params, cfg, state, t, iteration, generator,
                                noise=noise)
-    raise NotImplementedError(
-        f"stage {stage} (keypoint blending) is not ported yet (ROADMAP.md)"
-    )
+    return D.deform_stage23(params, cfg, state, t, iteration, generator,
+                            noise=noise)
 
 
 def time_with_noise(cfg: Config, t, iteration: int,
                     generator: Optional[torch.Generator], stage: int,
                     total_frame: int, noise=None):
-    """t + N(0,1) * time_noise_ratio / total_frame * anneal (stages 0-1),
-    when use_time_decay is on. `noise` is the N(0,1) draw, or None to draw
-    it from `generator`."""
-    if stage >= 2:
-        raise NotImplementedError(
-            f"stage {stage} is not ported yet (ROADMAP.md)")
+    """t + N(0,1) * time_noise_ratio / total_frame * anneal, when
+    use_time_decay is on; from stage 2 on the anneal restarts at the
+    stage-2 start and runs twice as long. `noise` is the N(0,1) draw, or
+    None to draw it from `generator`."""
     if not cfg.train.use_time_decay:
         return t
-    anneal = linear_anneal(iteration, 1.0, cfg.train.time_noise_iteration)
+    if stage >= 2:
+        anneal = linear_anneal(iteration - cfg.train.second_stage_iteration,
+                               1.0, cfg.train.time_noise_iteration * 2)
+    else:
+        anneal = linear_anneal(iteration, 1.0,
+                               cfg.train.time_noise_iteration)
     if noise is None:
         noise = _randn((), generator, t.device)
     noise = torch.as_tensor(noise, dtype=torch.float32, device=t.device)
@@ -108,21 +103,20 @@ def render_at_time(params, cfg: Config, state: GaussianState, cam, t,
 def make_train_step(cfg: Config, stage: int, width: int, height: int,
                     spatial_scale: float, sh_degree: int, total_frame: int,
                     bg):
-    """The training step of stage 0 or 1:
+    """The training step of one stage:
 
     step(state, opt_state, cam, gt, t, iteration, generator=None,
          active_deg=None, noise=None, time_noise=None)
       -> (state, opt_state, metrics)
 
     gt is the [H, W, 3] target, t a 0-d f32 tensor, iteration the global
-    iteration. noise ([C, 3]) and time_noise (0-d) are the N(0,1) draws of
-    the xyz and time jitter, drawn from `generator` when None. metrics:
-    loss, l1, psnr, n_dropped, and grads (the gradient of every trainable
-    param, the JAX package's tree layout)."""
-    if stage >= 2:
-        raise NotImplementedError(
-            f"stage {stage} is not ported yet (ROADMAP.md)")
+    iteration. noise and time_noise (0-d) are the N(0,1) draws of the xyz
+    and time jitter, drawn from `generator` when None; noise is [C, 3] (the
+    Gaussians) in stage 1 and [Ck, 3] (the keypoints) in stages 2/3.
+    metrics: loss, l1, psnr, n_dropped, and grads (the gradient of every
+    trainable param, the JAX package's tree layout)."""
     opt_stage = max(stage, 1)
+    s2 = cfg.train.second_stage_iteration
     groups = opt_mod.active_groups(cfg, opt_stage)
 
     def loss_and_grads(state, cam, gt, t, iteration, generator, active_deg,
@@ -135,7 +129,7 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
                 lambda x: x.detach().requires_grad_(True), params[k])
         dummy = torch.zeros((state.capacity, 2), dtype=torch.float32,
                             device=state.device, requires_grad=True)
-        pkg, _ = render_at_time(
+        pkg, dout = render_at_time(
             params, cfg, state, cam, t, iteration, generator, stage, width,
             height, bg, sh_degree, active_sh_degree=active_deg, noise=noise,
             means2d_dummy=dummy)
@@ -155,6 +149,8 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
             "radii": pkg["radii"],
             "visibility": pkg["visibility_filter"],
             "n_dropped": pkg["n_dropped"],
+            "delta_xyz": (None if dout.delta_xyz is None
+                          else dout.delta_xyz.detach()),
         }
         return loss.detach(), grads, next(it), aux
 
@@ -169,7 +165,12 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
             # densification statistics
             vis = aux["visibility"]
             vs_norm = torch.linalg.norm(vs_grads, dim=-1)
-            do_stats = vis & (iteration < cfg.opt.densify_until_iter)
+            do_stats = vis if iteration < cfg.opt.densify_until_iter \
+                else torch.zeros_like(vis)
+            if stage >= 2 and iteration < cfg.train.adaptive_end_iter + s2:
+                # the keypoint-growth window, while free keypoint rows last
+                do_stats = do_stats | (
+                    vis & (state.n_kpts() < cfg.model.kpt_capacity()))
             state = state.replace(
                 max_radii2D=torch.where(
                     do_stats, torch.maximum(state.max_radii2D, aux["radii"]),
@@ -181,6 +182,18 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
                     vs_norm, state.xyz_gradient_accum_max),
                 denom=state.denom + do_stats.to(torch.float32),
             )
+            if stage >= 2 and cfg.train.densify_from_teaching:
+                in_window = (cfg.train.adaptive_from_iter + s2 <= iteration
+                             < cfg.train.adaptive_end_iter + s2)
+                if in_window:
+                    resid = D.teacher_motion_residual(
+                        state.params, cfg, D.time_encode(cfg, t),
+                        aux["delta_xyz"])
+                    state = state.replace(
+                        xyz_motion_accum_max=torch.where(
+                            resid > state.xyz_motion_accum_max, resid,
+                            state.xyz_motion_accum_max),
+                        motion_denom=state.motion_denom + 1.0)
             new_params, opt_state = opt_mod.adam_step(
                 state.params, grads, opt_state, cfg, opt_stage,
                 spatial_scale, iteration)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import n, t
+from torch_port_util import n, one_torch_thread, t  # noqa: F401
 
 from gaussianprediction_tpu.ops import expand_pallas as JE
 from gaussianprediction_tpu_torch.ops import expand as TE

@@ -12,7 +12,13 @@ with at most 0.1% of the columns beyond it (a done latch that flips on an
 ulp), and two launches bit-identical. The scans are held to
 64 * 2^-24 * cumsum(|x|), a bound on f32 roundoff of sums of that depth.
 One training step on the card is held to the same step on the CPU through
-the plain versions. Whether a card is present is decided inside the
+the plain versions. The table-gradient kernel scatter_add_sorted is held
+per slot to 64 * 2^-24 * Σ|contributions| of its plain version (the same
+roundoff bound; on the card the plain version's index_add_ sums with
+atomics in no fixed order) and to the serial sum on the CPU bit for bit
+(the kernel sums each run in stream order, as that loop does), with two
+launches bit-identical; a stage-2 step run twice from one state is
+bit-identical. Whether a card is present is decided inside the
 `cuda_device` fixture; without one every test here skips.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -31,6 +37,7 @@ from gaussianprediction_tpu_torch.data.synthetic import (
 )
 from gaussianprediction_tpu_torch.kernels import launch_counts
 from gaussianprediction_tpu_torch.ops import expand as TE
+from gaussianprediction_tpu_torch.ops import hashgrid_kernels as THK
 from gaussianprediction_tpu_torch.ops import rasterize_kernels as TR
 from gaussianprediction_tpu_torch.ops import scan as TS
 
@@ -189,6 +196,88 @@ def test_scan_kernels_equal_cumsum(cuda_device):
     tol2 = 64 * eps * torch.cumsum(mat.abs(), dim=1)
     assert bool(((out2 - ref2).abs() <= tol2).all())
     assert torch.equal(out2, TS.cumsum_rows(mat))   # deterministic
+
+
+def _sorted_stream(case, dev):
+    """(keys, vals, n_slots) of one case, sorted, on the card."""
+    g = torch.Generator().manual_seed(3)
+    if case == "random":
+        n_slots = 1_000_003                      # not a multiple of 256
+        keys = torch.randint(0, n_slots, (3_000_000,), generator=g)
+    elif case == "skewed":
+        n_slots = 50_001
+        keys = torch.cat([torch.full((1_000_000,), 777),
+                          torch.randint(0, n_slots, (200_000,), generator=g)])
+    else:  # "empty": whole ranges of slots receive nothing
+        n_slots = 300_007
+        keys = torch.cat([torch.randint(0, 1000, (100_000,), generator=g),
+                          torch.randint(250_000, 260_000, (100_000,),
+                                        generator=g)])
+    keys = torch.sort(keys.to(torch.int32)).values
+    vals = torch.randn((4, keys.shape[0]), generator=g)
+    return keys.to(dev), vals.to(dev), n_slots
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "empty"])
+def test_scatter_add_sorted_kernel_equals_plain(cuda_device, case):
+    keys, vals, n_slots = _sorted_stream(case, cuda_device)
+    before = launch_counts["scatter_add_sorted"]
+    a = THK.scatter_add_sorted(keys, vals, n_slots)
+    b = THK.scatter_add_sorted(keys, vals, n_slots)
+    torch.cuda.synchronize()
+    assert launch_counts["scatter_add_sorted"] == before + 2
+    assert torch.equal(a, b)                      # deterministic
+    ref = THK.scatter_add_sorted_plain(keys, vals, n_slots)
+    tol = 64 * 2.0 ** -24 * THK.scatter_add_sorted_plain(keys, vals.abs(),
+                                                         n_slots)
+    assert bool(((a - ref).abs() <= tol).all())
+    serial = THK.scatter_add_sorted_plain(keys.cpu(), vals.cpu(), n_slots)
+    assert torch.equal(a.cpu(), serial)
+    hit = torch.zeros(n_slots, dtype=torch.bool, device=cuda_device)
+    hit[keys.to(torch.int64)] = True
+    assert not a[:, ~hit].any()
+
+
+def test_stage2_step_on_card_is_deterministic(cuda_device):
+    """A `test`-preset model through the stage-1 -> 2 transition, then one
+    stage-2 step (kernel #7 and the keypoint blend's GEMM backward) run
+    twice from the same state: loss, params and moments bit-identical."""
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.models.gaussians import create_from_pcd
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.loop import stage_transition
+    from gaussianprediction_tpu_torch.train.step import make_train_step
+
+    cfg = get_preset("test")
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (400, 3)).astype(np.float32)
+    state = create_from_pcd(cfg, pts, cols, torch.Generator().manual_seed(0),
+                            device=cuda_device)
+    params = dict(state.params)
+    params["motion_feature"] = 0.3 * torch.randn(
+        params["motion_feature"].shape, device=cuda_device,
+        generator=torch.Generator(cuda_device).manual_seed(1))
+    state = state.replace(params=params)
+    it = cfg.train.second_stage_iteration + 1
+    state, opt = stage_transition(state, O.init_adam(state.params), cfg, it,
+                                  torch.Generator(cuda_device).manual_seed(2))
+    step = make_train_step(cfg, 2, 64, 64, 1.0, 1, 50,
+                           torch.zeros(3, device=cuda_device))
+    cam = orbit_camera(0.9, width=64, height=64).to_device_dict(cuda_device)
+    gt = torch.rand((64, 64, 3), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    before = launch_counts["scatter_add_sorted"]
+    outs = [step(state, opt, cam, gt, torch.tensor(0.3, device=cuda_device),
+                 it, torch.Generator(cuda_device).manual_seed(5))
+            for _ in range(2)]
+    assert launch_counts["scatter_add_sorted"] == before + 2
+    (s1, o1, m1), (s2, o2, m2) = outs
+    assert int(m1["n_dropped"]) == 0 and torch.isfinite(m1["loss"])
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(O.tree_leaves([s1.params, o1["m"], o1["v"]]),
+                    O.tree_leaves([s2.params, o2["m"], o2["v"]])):
+        assert torch.equal(a, b)
 
 
 def test_render_matches_oracle_on_card(cuda_device):

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import n, scene, t
+from torch_port_util import n, one_torch_thread, scene, t  # noqa: F401
 
 from gaussianprediction_tpu.data.synthetic import orbit_camera
 from gaussianprediction_tpu.ops import instance_stream as JS

@@ -4,10 +4,15 @@ densify.py, models/gaussians.py:create_from_pcd) with the JAX package.
 A `dnerf`-preset model (2k Gaussians, SH degree 3, the d=4 w=256 deform
 MLP) with random densification statistics and Adam moments is made with
 numpy, carried into the port by convert.py, and stepped once at stage 0
-and once at stage 1 by both packages at 128x128, with time decay on. The
+and once at stage 1 by both packages at 128x128, with time decay on. A
+third case steps stage 1 with step opacity on (explicit: the gradient
+reaches opacity_thres, and the lifecycle pass re-runs the deform MLP),
+time decay off and the SH basis truncated (active degree 1 of 3). The
 JAX step draws its time and xyz noise from its key; the test draws the
 same numbers with jax.random and hands them to the port. Each JAX step is
-jitted once and shared by the cases that read it.
+jitted once and shared by the cases that read it. The implicit lifecycle
+(Δo from the MLP) is held by a VJP of deform_stage1 alone, without a
+render, for both opacity types.
 
 Tolerances, and why:
   - loss, l1: 1e-5 relative (the render agrees to 2e-5 per pixel);
@@ -30,10 +35,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import jax_state, n, stage1_params, t
+from torch_port_util import (  # noqa: F401
+    jax_state, n, one_torch_thread, stage1_params, t,
+)
 
 from gaussianprediction_tpu import config as jcfg
 from gaussianprediction_tpu.data.synthetic import orbit_camera
+from gaussianprediction_tpu.models import deform as jdeform
 from gaussianprediction_tpu.models import gaussians as jgauss
 from gaussianprediction_tpu.train import densify as jdens
 from gaussianprediction_tpu.train import step as jstep
@@ -44,6 +52,7 @@ from gaussianprediction_tpu_torch.convert import (
 from gaussianprediction_tpu_torch.data.synthetic import (
     orbit_camera as torbit,
 )
+from gaussianprediction_tpu_torch.models import deform as tdeform
 from gaussianprediction_tpu_torch.models import gaussians as tgauss
 from gaussianprediction_tpu_torch.train import densify as tdens
 from gaussianprediction_tpu_torch.train import optimizer as topt
@@ -52,23 +61,35 @@ from gaussianprediction_tpu_torch.train import step as tstep
 W = H = 128
 N = 2000
 TOTAL_FRAME = 50
-ITERS = {0: 500, 1: 2000}      # stage 1 inside the noise anneals
 STATS4 = ("xyz_gradient_accum", "xyz_gradient_accum_max", "denom",
           "max_radii2D")
 
 
-def _cfgs():
+# case -> (stage, iteration, active SH degree or None, step opacity); the
+# stage-1 iterations lie inside the noise anneals
+CASES = {0: (0, 500, None, False), 1: (1, 2000, None, False),
+         "step_opacity": (1, 6000, 1, True)}
+
+
+def _cfgs(step_opacity=False):
     jc, tc = jcfg.get_preset("dnerf"), tcfg.get_preset("dnerf")
-    jc.train.use_time_decay = tc.train.use_time_decay = True
+    for c in (jc, tc):
+        c.train.use_time_decay = not step_opacity
+        if step_opacity:
+            c.model.step_opacity = True
+            c.model.opacity_type = "explicit"
     return jc, tc
 
 
-def _start():
+def _start(step_opacity=False):
     """numpy params, alive, statistics and Adam state of a model in
     training."""
-    tc = tcfg.get_preset("dnerf")
+    _, tc = _cfgs(step_opacity)
     params, alive = stage1_params(tc, N, seed=11)
     rng = np.random.default_rng(12)
+    if step_opacity:
+        params["opacity_thres"] = rng.uniform(0.0, 0.8, (N, 1)).astype(
+            np.float32)
     stats = {
         "xyz_gradient_accum": rng.uniform(0, 1e-3, N).astype(np.float32),
         "xyz_gradient_accum_max": rng.uniform(0, 1e-4, N).astype(
@@ -102,35 +123,44 @@ def _jax_state(params, alive, stats):
 
 @pytest.fixture(scope="module")
 def steps():
-    """One JAX and one port step per stage from the same state."""
-    jc, tc = _cfgs()
-    params, alive, stats, opt = _start()
+    """One JAX and one port step per case from the same state."""
     bg = np.array([0.1, 0.2, 0.3], np.float32)
     view = orbit_camera(0.9, width=W, height=H, time=0.4)
     tview = torbit(0.9, width=W, height=H, time=0.4)
     gt = np.random.default_rng(5).uniform(0, 1, (H, W, 3)).astype(
         np.float32)
     out = {}
-    for stage, it in ITERS.items():
+    for case, (stage, it, deg, sop) in CASES.items():
+        jc, tc = _cfgs(sop)
+        params, alive, stats, opt = _start(sop)
         key = jax.random.PRNGKey(stage)
         k_noise, k_time = jax.random.split(key)
         time_noise = jax.random.normal(k_time, ())
         xyz_noise = jax.random.normal(k_noise, (N, 3)) if stage else None
-        jfn, _, _ = jstep.make_train_step(jc, stage, W, H, 1.3, 3,
-                                          TOTAL_FRAME, bg, interpret=True)
+        jfn, raw, _ = jstep.make_train_step(jc, stage, W, H, 1.3, 3,
+                                            TOTAL_FRAME, bg, interpret=True)
+        if sop:
+            # the JAX lifecycle tests the iteration in Python
+            # (models/deform.py:_lifecycle_opacity), so its jitted step
+            # cannot trace it: jit with the iteration static instead
+            jfn, jit_it = jax.jit(raw, static_argnums=5), it
+        else:
+            jit_it = jnp.int32(it)
         js2, jopt2, jm = jfn(_jax_state(params, alive, stats),
                              jax.tree.map(jnp.asarray, opt),
                              view.to_device_dict(), jnp.asarray(gt),
-                             jnp.float32(0.4), jnp.int32(it), key)
+                             jnp.float32(0.4), jit_it, key,
+                             None if deg is None else jnp.int32(deg))
         ts = state_from_params(params, alive, device="cpu", stats=stats)
         topt0 = opt_state_from_arrays(opt, device="cpu")
         step = tstep.make_train_step(tc, stage, W, H, 1.3, 3, TOTAL_FRAME,
                                      t(bg))
         ts2, topt2, tm = step(
             ts, topt0, tview.to_device_dict("cpu"), t(gt), torch.tensor(0.4),
-            it, noise=None if xyz_noise is None else t(xyz_noise),
+            it, active_deg=deg,
+            noise=None if xyz_noise is None else t(xyz_noise),
             time_noise=t(time_noise))
-        out[stage] = (js2, jopt2, jm, ts2, topt2, tm, opt)
+        out[case] = (js2, jopt2, jm, ts2, topt2, tm, opt)
     return out
 
 
@@ -138,17 +168,18 @@ def _leaves(tree):
     return topt.tree_leaves(tree)
 
 
-@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("stage", list(CASES))
 def test_train_step_matches_jax(steps, stage):
     js2, jopt2, jm, ts2, topt2, tm, opt0 = steps[stage]
+    stage, it, deg, sop = CASES[stage]
     assert int(tm["n_dropped"]) == int(jm["n_dropped"]) == 0
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)
     np.testing.assert_allclose(float(tm["l1"]), float(jm["l1"]), rtol=1e-5)
-    tc = tcfg.get_preset("dnerf")
+    _, tc = _cfgs(sop)
     groups = topt.active_groups(tc, max(stage, 1))
+    assert ("opacity_thres" in groups) == sop
     assert int(topt2["step"]) == int(jopt2["step"]) == 5
-    it = ITERS[stage]
     for key, group in topt.GROUP_OF_PARAM.items():
         if key not in ts2.params:
             continue
@@ -186,7 +217,58 @@ def test_train_step_matches_jax(steps, stage):
                                    atol=2e-4 * np.abs(ref).max(),
                                    err_msg=k)
     # inside the densification window: the statistics moved
-    assert float(ts2.denom.sum()) > float(_start()[2]["denom"].sum())
+    assert float(ts2.denom.sum()) > float(_start(sop)[2]["denom"].sum())
+    if sop:
+        assert tm["grads"]["opacity_thres"].abs().max() > 0
+    if deg is not None:
+        # coefficients beyond the active degree get no gradient
+        assert not tm["grads"]["features_rest"][:, (deg + 1) ** 2 - 1:].any()
+
+
+@pytest.mark.parametrize("opacity_type", ["implicit", "explicit"])
+def test_lifecycle_opacity_vjp_matches_jax(opacity_type):
+    """deform_stage1's opacity with step opacity on, past
+    step_opacity_iteration, and its VJP into every param it reads: the
+    implicit lifecycle's Δo (the deform MLP's 8th output) and the explicit
+    one's opacity_thres. Tolerances: the opacity to 1e-6, each gradient to
+    2e-4 of its leaf's largest magnitude."""
+    jc, tc = _cfgs(True)
+    jc.model.opacity_type = tc.model.opacity_type = opacity_type
+    params, alive, _, _ = _start(True)
+    params = {k: v[:300] if k != "df_mlp" else v for k, v in params.items()}
+    keys = ("opacity", "opacity_thres", "motion_feature", "df_mlp")
+    ct = np.random.default_rng(8).normal(size=(300, 1)).astype(np.float32)
+    js = jax_state(params, alive[:300])
+
+    def jfn(sub):
+        p = {**js.params, **sub}
+        return jdeform.deform_stage1(p, jc, js, jnp.float32(0.3), 6000, None,
+                                     noise=jnp.zeros((300, 3))).opacity
+
+    @jax.jit
+    def opacity_vjp(sub, c):
+        out, vjp = jax.vjp(jfn, sub)
+        return out, vjp(c)[0]
+
+    jout, jg = opacity_vjp({k: js.params[k] for k in keys}, jnp.asarray(ct))
+    ts = state_from_params(params, alive[:300], device="cpu")
+    sub = {k: topt.tree_map(lambda x: x.clone().requires_grad_(True),
+                            ts.params[k]) for k in keys}
+    tout = tdeform.deform_stage1({**ts.params, **sub}, tc, ts,
+                                 torch.tensor(0.3), 6000, None,
+                                 noise=torch.zeros((300, 3))).opacity
+    np.testing.assert_allclose(n(tout), n(jout), rtol=0, atol=1e-6)
+    leaves = [x for k in keys for x in topt.tree_leaves(sub[k])]
+    got = torch.autograd.grad(tout, leaves, t(ct), allow_unused=True)
+    ref = [x for k in keys for x in jax.tree.leaves(jg[k])]
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        b = n(b)
+        a = np.zeros_like(b) if a is None else n(a)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=2e-4 * np.abs(b).max() + 1e-12)
+    moved = {"implicit": "df_mlp", "explicit": "opacity_thres"}[opacity_type]
+    assert any(np.abs(n(x)).max() > 0 for x in jax.tree.leaves(jg[moved]))
 
 
 def _densify_start():
@@ -256,7 +338,13 @@ def test_create_from_pcd_matches_jax():
     # the random parts are the JAX package's draws
     ts = tgauss.create_from_pcd(
         tc, pts, cols, motion_feature=n(js.params["motion_feature"]),
-        df_mlp=jax.tree.map(np.asarray, js.params["df_mlp"]), device="cpu")
+        df_mlp=jax.tree.map(np.asarray, js.params["df_mlp"]),
+        hash_tables=jax.tree.map(np.asarray, js.params["hash_tables"]),
+        weight_mlp=jax.tree.map(np.asarray, js.params["weight_mlp"]),
+        device="cpu")
+    assert sorted(ts.params) == sorted(js.params)
+    assert ts.kpt_capacity == 32 and int(ts.n_kpts()) == 0
+    assert int(ts.n_alive()) == 300
     np.testing.assert_array_equal(n(ts.alive), n(js.alive))
     np.testing.assert_array_equal(n(ts.kpt_alive), n(js.kpt_alive))
     for k, v in ts.params.items():
@@ -270,3 +358,7 @@ def test_create_from_pcd_matches_jax():
                                  device="cpu")
     assert ts2.params["motion_feature"].abs().max() <= 1e-3
     assert torch.equal(ts2.params["scaling"], ts.params["scaling"])
+    for k in ("hash_tables", "weight_mlp"):
+        assert [x.shape for x in topt.tree_leaves(ts2.params[k])] == \
+            [x.shape for x in topt.tree_leaves(ts.params[k])]
+    assert float(ts2.params["hash_tables"]["level_0"].abs().max()) <= 1e-4

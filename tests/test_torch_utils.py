@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import jax_state, n, stage1_params, t
+from torch_port_util import (  # noqa: F401
+    jax_state, n, one_torch_thread, stage1_params, t,
+)
 
 from gaussianprediction_tpu import config as jcfg
 from gaussianprediction_tpu.data import synthetic as jsyn

@@ -23,6 +23,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the importing module's torch CPU ops on one thread, restoring
+    the count after it. The suite runs several workers on few cores and
+    torch starts one thread per core in each: oversubscribed, its many
+    small ops wait on each other many times longer than they compute.
+    Autouse only in modules that import it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def t(x, device=CPU):
     """numpy/jax array -> torch tensor (copy)."""
     return torch.as_tensor(np.array(x), device=device)
