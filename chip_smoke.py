@@ -43,27 +43,39 @@ the run with a non-zero exit and no result line):
      batched (interleave + cumsum_rows), each against serial on the same
      state: the per-Gaussian gradient within f32 cumsum roundoff;
  11. a torch.profiler breakdown of one training step;
- 12. the 1->2 transition of the trained stage-1 model at iteration 30001:
+ 12. blend variants (GPT_BLEND_FLAT=1; GPT_BLEND_MT=1 at TPB 4 and 3): on
+     the first view's stream and the dpix of a stage-1 step from the
+     trained state, each variant's forward kernel equal bit for bit to the
+     classic blend_fwd kernel and to its plain version, its backward kernel
+     equal bit for bit to the classic blend_bwd kernel and within 1e-5 of
+     each row's largest magnitude of its plain version, two launches of
+     each bit-identical; then render_set of the 5 views and one stage-1
+     step under FLAT and under MT (TPB 4), with the counts set to 0 just
+     before each: images, loss and params equal to the classic path's bit
+     for bit, each variant kernel launched (5 and 1 times) and the classic
+     ones not; ms per view and per step (6 steps from one state) beside the
+     classic path's; a profile of one view and one step under each;
+ 13. the 1->2 transition of the trained stage-1 model at iteration 30001:
      a smooth non-zero motion feature, a seeded hash-grid weight model (16
      levels, F=4, T=2^19, the 2x64 MLP), k-means keypoints
      (set_super_keypoints) and a fresh Adam: exactly 100 keypoints alive,
      every value finite;
- 13. the first stage-2 step with its scatter_add_sorted inputs captured
+ 14. the first stage-2 step with its scatter_add_sorted inputs captured
      (M = 26,214,400 contributions into 6,101,902 slots at this width):
      the kernel within 64 * 2^-24 * Σ|contributions| of each slot of its
      plain version, two launches bit-identical, and compared bit for bit
      with the serial sum on the CPU; index_add_ timed as the library call;
- 14. 8 stage-2 steps with the counts set to 0 just before: finite loss,
+ 15. 8 stage-2 steps with the counts set to 0 just before: finite loss,
      grads and params, n_dropped == 0, scatter_add_sorted and blend_bwd once
      a step, ms per step; one step run twice bit-identical; one
      grow_keypoints_from_grads event (100 < keypoints <= 200), one more step;
- 15. the 2->3 transition and 8 stage-3 steps from iteration 40001 with the
+ 16. the 2->3 transition and 8 stage-3 steps from iteration 40001 with the
      same checks, the loss falling from the first step to the last;
- 16. a torch.profiler breakdown of one stage-2 step (the kernel, the sorts
+ 17. a torch.profiler breakdown of one stage-2 step (the kernel, the sorts
      and the gathers by name), then the encoder's gather (and the 2-d
      index_select it replaces, checked equal) and the table gradient's
      stable sort, each timed alone with CUDA events;
- 17. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 18. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
@@ -97,6 +109,10 @@ REPLACES = {
     "cumsum_channels": "gaussianprediction_tpu/ops/scan_pallas.py:84",
     "cumsum_rows": "gaussianprediction_tpu/ops/scan_pallas.py:49",
     "scatter_add_sorted": "gaussianprediction_tpu/ops/hashgrid_pallas.py:49",
+    "blend_fwd_flat": "gaussianprediction_tpu/ops/rasterize_pallas.py:1458",
+    "blend_bwd_flat": "gaussianprediction_tpu/ops/rasterize_pallas.py:1533",
+    "blend_fwd_mt": "gaussianprediction_tpu/ops/rasterize_pallas.py:1038",
+    "blend_bwd_mt": "gaussianprediction_tpu/ops/rasterize_pallas.py:1155",
 }
 SOURCES = {
     "stack": "gaussianprediction_tpu_torch/kernels/csrc/stack_rows.cu",
@@ -110,6 +126,14 @@ SOURCES = {
     "cumsum_rows": "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
     "scatter_add_sorted":
         "gaussianprediction_tpu_torch/kernels/csrc/scatter_add_sorted.cu",
+    "blend_fwd_flat":
+        "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd_flat.cu",
+    "blend_bwd_flat":
+        "gaussianprediction_tpu_torch/kernels/csrc/blend_bwd_flat.cu",
+    "blend_fwd_mt":
+        "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd_mt.cu",
+    "blend_bwd_mt":
+        "gaussianprediction_tpu_torch/kernels/csrc/blend_bwd_mt.cu",
 }
 # the __global__ functions of each kernel, as torch.profiler names them
 # (the scan is three: block sums, their scan, the block scans)
@@ -123,6 +147,17 @@ DEVICE_NAMES = {
     "cumsum_channels": SCAN_FUNCS,
     "cumsum_rows": SCAN_FUNCS,
     "scatter_add_sorted": ("mark_heads_kernel", "reduce_runs_kernel"),
+    "blend_fwd_flat": ("blend_fwd_flat_kernel",),
+    "blend_bwd_flat": ("blend_bwd_flat_kernel",),
+    "blend_fwd_mt": ("blend_fwd_mt_kernel",),
+    "blend_bwd_mt": ("blend_bwd_mt_kernel",),
+}
+# the blend variants' environments (GPT_BLEND_*): the kernels line carries
+# FLAT and MT at TPB 4; TPB 3 is checked on the same inputs
+VARIANT_ENV = {
+    "flat": {"GPT_BLEND_FLAT": "1"},
+    "mt": {"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "4"},
+    "mt3": {"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "3"},
 }
 FWD_KERNELS = ("stack", "expand", "interleave", "blend_fwd")
 EPS32 = 2.0 ** -24
@@ -475,6 +510,28 @@ def pad_to_capacity(params, alive, C: int):
     return out, np.concatenate([alive, np.zeros(C - n, bool)])
 
 
+def bwd_vs_plain(a, ref):
+    """A backward blend kernel's output against its plain version: rows
+    0-9 per column within 1e-5 of each row's largest magnitude (the kernel
+    sums the pixels in another order). Returns (columns beyond it, live
+    columns, max |err|, max |err| of the columns within it)."""
+    err = (a[:10] - ref[:10]).abs()
+    scale = ref[:10].abs().amax(dim=1, keepdim=True)
+    bad = (err > 1e-5 * scale).any(dim=0)
+    live = (ref[:10] != 0).any(dim=0) | (a[:10] != 0).any(dim=0)
+    err_in = float(torch.where(bad[None], 0.0, err).max())
+    return int(bad.sum()), int(live.sum()), float(err.max()), err_in
+
+
+def bits_equal(a, b) -> bool:
+    """Every bit equal (signed zeros too): f32 tensors or arrays."""
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                     b.view(np.int32))
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check_train_kernels(cap, dev, reps: int):
     """The backward blend and both scans beside their plain versions on the
     first training step's inputs."""
@@ -494,22 +551,17 @@ def check_train_kernels(cap, dev, reps: int):
     ref = rk.rasterize_binned_bwd_plain(inst, ts, te, gx, gy, dpix, aux=aux)
     sync(dev)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = (a[:10] - ref[:10]).abs()
-    scale = ref[:10].abs().amax(dim=1, keepdim=True)
-    bad = (err > 1e-5 * scale).any(dim=0)
-    live = (ref[:10] != 0).any(dim=0) | (a[:10] != 0).any(dim=0)
-    n_bad, n_live = int(bad.sum()), int(live.sum())
-    err_in = float(torch.where(bad[None], 0.0, err).max())
+    n_bad, n_live, err_max, err_in = bwd_vs_plain(a, ref)
     log(f"blend_bwd: bit-identical across 2 launches; columns with a row "
         f"beyond 1e-5 of the row's max |grad| {n_bad} of {n_live} live; "
-        f"max |err| {float(err.max()):.3e} (within tolerance {err_in:.3e});"
+        f"max |err| {err_max:.3e} (within tolerance {err_in:.3e});"
         f" pairs {aux['pairs']} flops {aux['flops']} instances read "
         f"{aux['instances']}")
     if a[10:].any() or n_bad > 1e-3 * max(n_live, 1):
         raise AssertionError("blend_bwd disagrees with its plain version")
     T = gx * gy
     res["blend_bwd"] = dict(
-        max_abs_err=float(err.max()),
+        max_abs_err=err_max,
         ms=time_ms(lambda: rk.rasterize_binned_bwd(inst, ts, te, gx, gy,
                                                    dpix), dev, reps),
         plain_ms=plain_ms, library_ms=None,
@@ -791,6 +843,211 @@ def train_phases(cfg, dev, n: int, size: int, seed: int, views, bg,
     return res, launches, device_ms, ctx
 
 
+class variant_env:
+    """The environment variables of one blend variant, set for the block."""
+
+    def __init__(self, env: dict):
+        self.env = env
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def step_ms(step, args, dev, n: int):
+    """ms of n steps from the same state (CUDA events on the card, a host
+    clock on the CPU); returns the list."""
+    ms = []
+    for _ in range(n):
+        if dev.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            checked(step(*args), "timed step")
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        else:
+            t0 = time.perf_counter()
+            checked(step(*args), "timed step")
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
+                   fwd_args, ctx, rehearse: bool, reps: int):
+    """Phase 'blend variants': the flat work-list (GPT_BLEND_FLAT) and
+    multi-tile (GPT_BLEND_MT, TPB 4 and 3) blends at the main path's
+    width. Their kernels against the classic kernels (bit for bit) and their
+    plain versions on the first view's stream and a stage-1 step's dpix;
+    render_set of the views and a stage-1 step under FLAT and MT (TPB 4)
+    against the classic path, bit for bit; each path's ms beside the
+    classic path's. Returns (res, launches, device_ms) for the kernels
+    line."""
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.eval.render import (
+        make_render_fn, render_set,
+    )
+    from gaussianprediction_tpu_torch.ops import blend_variants as BV
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.step import make_train_step
+
+    tcfg, state, opt = ctx["cfg"], ctx["state"], ctx["opt"]
+    cam, gt, t, bg_t, gen = ctx["cam"], ctx["gt"], ctx["t"], ctx["bg_t"], \
+        ctx["gen"]
+    size = gt.shape[0]
+    it1 = 20_000
+    step1 = make_train_step(tcfg, 1, size, size, ctx["extent"],
+                            tcfg.model.sh_degree, 50, bg_t)
+    step_args = lambda: (state, opt, cam, gt, t, it1, gen())  # noqa: E731
+    nsteps = 3 if rehearse else 6
+
+    with Phase("blend variants: a classic stage-1 step, its dpix captured"):
+        with Capture([(rk, "rasterize_binned_bwd")]) as cap:
+            ref_step = checked(step1(*step_args()), "classic step")
+        sync(dev)
+        (inst, ts, te, gx, gy, dpix), _ = cap.args["rasterize_binned_bwd"]
+        inst = inst.detach()
+        finst, fts, fte, fgx, fgy, with_tidx = fwd_args
+        out_c = rk.rasterize_binned(finst, fts, fte, fgx, fgy, with_tidx,
+                                    rk.CLASSIC)
+        d_c = rk.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix,
+                                      variant=rk.CLASSIC)
+        sync(dev)
+
+    res = {}
+    for key, env in VARIANT_ENV.items():
+        with Phase(f"blend variants: {key} kernels vs classic and plain "
+                   "versions"), torch.no_grad():
+            with variant_env(env):
+                v = rk.blend_variant()
+            kind = v.kind
+            a, a2 = (rk.rasterize_binned(finst, fts, fte, fgx, fgy,
+                                         with_tidx, v) for _ in range(2))
+            da, da2 = (rk.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix,
+                                               variant=v) for _ in range(2))
+            sync(dev)
+            aux, auxb = {}, {}
+            t0 = time.perf_counter()
+            if kind == "flat":
+                ref = BV.rasterize_binned_flat_plain(
+                    finst, fts, fte, fgx, fgy, with_tidx, aux=aux)
+            else:
+                ref = BV.rasterize_binned_mt_plain(
+                    finst, fts, fte, fgx, fgy, v.tpb, with_tidx, aux=aux)
+            sync(dev)
+            t1 = time.perf_counter()
+            if kind == "flat":
+                dref = BV.rasterize_binned_bwd_flat_plain(
+                    inst, ts, te, gx, gy, dpix, aux=auxb)
+            else:
+                dref = BV.rasterize_binned_bwd_mt_plain(
+                    inst, ts, te, gx, gy, v.tpb, dpix, aux=auxb)
+            sync(dev)
+            t2 = time.perf_counter()
+            n_bad, n_live, err_max, err_in = bwd_vs_plain(da, dref)
+            ok = dict(fwd_classic=bits_equal(a, out_c),
+                      fwd_twice=bits_equal(a2, a),
+                      fwd_plain=bits_equal(a, ref),
+                      bwd_classic=bits_equal(da, d_c),
+                      bwd_twice=bits_equal(da2, da))
+            log(f"{key} ({v}): bit for bit {ok}; bwd vs plain: columns "
+                f"with a row beyond 1e-5 of the row's max |grad| {n_bad} of "
+                f"{n_live} live, max |err| {err_max:.3e} (within tolerance "
+                f"{err_in:.3e}); pairs {aux['pairs']} / {auxb['pairs']}")
+            if not all(ok.values()) or da[10:].any() or \
+                    n_bad > 1e-3 * max(n_live, 1):
+                raise AssertionError(f"{key} blend disagrees")
+            if key == "mt3":
+                continue
+            T, Tb = fgx * fgy, gx * gy
+            lst = lstb = 0          # the work list read by the kernels
+            if kind == "flat":
+                lst = 4 * (int(BV.worklist(finst, fts, fte)[3]) + T)
+                lstb = 4 * (int(BV.worklist(inst, ts, te)[3]) + Tb)
+            res[f"blend_fwd_{kind}"] = dict(
+                max_abs_err=float((a - ref).abs().max()),
+                ms=time_ms(lambda: rk.rasterize_binned(
+                    finst, fts, fte, fgx, fgy, with_tidx, v), dev, reps),
+                plain_ms=(t1 - t0) * 1e3, library_ms=None,
+                bytes=aux["instances"] * 12 * 4 + 2 * T * 4
+                + T * rk.PIX * 8 * 4 + lst, ops=aux["flops"])
+            res[f"blend_bwd_{kind}"] = dict(
+                max_abs_err=err_max,
+                ms=time_ms(lambda: rk.rasterize_binned_bwd(
+                    inst, ts, te, gx, gy, dpix, variant=v), dev, reps),
+                plain_ms=(t2 - t1) * 1e3, library_ms=None,
+                bytes=auxb["instances"] * (12 + 10) * 4 + 2 * Tb * 4
+                + Tb * rk.PIX * 5 * 4 + lstb, ops=auxb["flops"])
+    add_bounds(res)
+
+    launches, device_ms = {}, {}
+    rfn = make_render_fn(rstate, cfg, iteration, views[0].width,
+                         views[0].height, bg, cfg.model.sh_degree)
+    cam0 = views[0].to_device_dict(dev)
+    t0v = torch.tensor(views[0].time, dtype=torch.float32, device=dev)
+    for key, env in (("classic", {}), ("flat", VARIANT_ENV["flat"]),
+                     ("mt", VARIANT_ENV["mt"])):
+        with Phase(f"blend variants: render_set and stage-1 steps, {key}"):
+            with variant_env(env):
+                kernels.reset_launch_counts()
+                stats = {}
+                vr, _, _ = render_set(rstate, cfg, iteration, views, bg,
+                                      stats=stats)
+                sync(dev)
+                got = dict(kernels.launch_counts)
+                kernels.reset_launch_counts()
+                vstep = checked(step1(*step_args()), f"{key} step")
+                sync(dev)
+                gots = dict(kernels.launch_counts)
+                ms = step_ms(step1, step_args(), dev, nsteps)
+                same_img = all(bits_equal(x, y) for x, y in zip(vr, renders))
+                same_step = bits_equal(vstep[2]["loss"], ref_step[2]["loss"]) \
+                    and all(bits_equal(x, y) for x, y in zip(
+                        O.tree_leaves(vstep[0].params),
+                        O.tree_leaves(ref_step[0].params)))
+                log(f"{key}: render_set ms per view {stats['ms']} (launches "
+                    f"{got}); images equal to the classic render_set bit for "
+                    f"bit {same_img}; stage-1 step loss "
+                    f"{float(vstep[2]['loss']):.6f}, loss and params equal "
+                    f"to the classic step bit for bit {same_step} (launches "
+                    f"{gots}); ms per step from the same state "
+                    f"{[round(x, 3) for x in ms]}, median of steps 2-{nsteps}"
+                    f" {float(np.median(ms[1:])):.3f}")
+                if not (same_img and same_step):
+                    raise AssertionError(f"{key}: the path differs from the "
+                                         "classic path")
+                if key == "classic":
+                    continue
+                fk, bk = f"blend_fwd_{key}", f"blend_bwd_{key}"
+                launches[fk], launches[bk] = got.get(fk, 0), gots.get(bk, 0)
+                if not rehearse and not (
+                        got.get(fk, 0) == len(views) and gots.get(bk) == 1
+                        and not got.get("blend_fwd")
+                        and not gots.get("blend_bwd")):
+                    raise AssertionError(f"{key}: the path did not run its "
+                                         "kernels")
+                dm = profile(lambda: rfn(cam0, t0v), dev, f"one view, {key}",
+                             top=4)
+                device_ms[fk] = dm[fk]
+                dm = profile(lambda: step1(*step_args()), dev,
+                             f"one stage-1 step, {key}", top=4)
+                device_ms[bk] = dm[bk]
+                log(f"  {fk} device ms per launch {device_ms[fk]}; {bk} "
+                    f"{device_ms[bk]}")
+    return res, launches, device_ms
+
+
 def check_scatter_kernel(cap, dev, reps: int):
     """scatter_add_sorted beside its plain version on the first stage-2
     step's table-gradient stream: within 64 * 2^-24 * Σ|contributions| of
@@ -844,7 +1101,7 @@ def check_scatter_kernel(cap, dev, reps: int):
 
 
 def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
-    """Phases 12-16 on the trained stage-1 state: the 1->2 transition,
+    """Phases 13-17 on the trained stage-1 state: the 1->2 transition,
     kernel #7 against its plain version, stage-2 steps with a keypoint
     growth event, the 2->3 transition and stage-3 steps, a profile of one
     stage-2 step. Returns (res, launches, device_ms) for the kernels
@@ -1047,6 +1304,10 @@ def main() -> int:
                     help="CPU, 2k Gaussians, 128x128, plain versions")
     args = ap.parse_args()
 
+    # the classic phases run the classic blend; phase 12 sets each variant
+    for k in [k for k in os.environ if k.startswith("GPT_BLEND_")]:
+        log(f"ignoring {k}={os.environ.pop(k)}")
+
     from gaussianprediction_tpu_torch import kernels
     from gaussianprediction_tpu_torch.config import get_preset
     from gaussianprediction_tpu_torch.convert import state_from_params
@@ -1123,6 +1384,7 @@ def main() -> int:
         sync(dev)
         with torch.no_grad():
             res = check_kernels(cap.args, dev, reps)
+        fwd_capture = cap.args
 
     with Phase("small scene vs oracle"):
         with torch.no_grad():
@@ -1165,6 +1427,12 @@ def main() -> int:
     res.update(tres)
     launches.update({k: tlaunches.get(k, 0) for k in tres})
     device_ms.update({k: tdevice_ms[k] for k in tres})
+    vres, vlaunches, vdevice_ms = variant_phases(
+        cfg, dev, state, iteration, views, bg, renders,
+        fwd_capture["rasterize_binned"][0], ctx, args.rehearse, reps)
+    res.update(vres)
+    launches.update(vlaunches)
+    device_ms.update(vdevice_ms)
     sres, slaunches, sdevice_ms = stage23_phases(ctx, dev, args.seed,
                                                  args.rehearse, reps)
     res.update(sres)

@@ -28,9 +28,12 @@
 // only columns inside its own segment, nothing is read back and there are
 // no atomics: the output is deterministic, bit for bit.
 //
-// alpha, T and the latch come from gpt::pair_terms (common.cuh), the same
-// code as blend_fwd, so the latch fires on the same instance. Every other
-// operation is an _rn intrinsic in the plain version's order.
+// The per-pixel arithmetic, the reduction and the column writes are
+// gpt::bwd_walk (common.cuh), which the flat work-list and multi-tile
+// kernels share, so all three write the same bits. alpha, T and the latch
+// come from gpt::pair_terms, the same code as blend_fwd, so the latch fires
+// on the same instance. Every other operation is an _rn intrinsic in the
+// plain version's order.
 //
 // Bound on the H100: by the f32 arithmetic of the (pixel, instance) pairs
 // up to each pixel's done latch, as the forward's, plus the gradient terms
@@ -43,17 +46,6 @@ namespace {
 
 constexpr int kPix = gpt::kBlendPix;
 constexpr int kCh = gpt::kBlendCh;
-constexpr int kWarps = kPix / 32;
-constexpr int kSub = 32;   // instances per reduction sub-batch
-constexpr int kGrad = 10;  // gradient rows written per instance
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
-  }
-  return x;
-}
 
 __global__ void __launch_bounds__(kPix)
 blend_bwd_kernel(const float* __restrict__ inst, long long P,
@@ -61,113 +53,20 @@ blend_bwd_kernel(const float* __restrict__ inst, long long P,
                  const int* __restrict__ tile_end, int grid_x,
                  const float* __restrict__ dpix, float* __restrict__ dinst) {
   __shared__ float s[kCh][kPix];
-  __shared__ float red[kSub][kWarps][kGrad];
+  __shared__ gpt::Reduce red[gpt::kBlendSub];
   const int t = blockIdx.x;
   const int lin = threadIdx.x;
-  const int lane = lin & 31;
-  const int warp = lin >> 5;
-  const int ty = t / grid_x;
-  const int tx = t - ty * grid_x;
-  const float px = (float)(tx * 16 + (lin & 15));
-  const float py = (float)(ty * 16 + (lin >> 4));
   const int start = tile_start[t];
   const int end = tile_end[t];
-  const float* dp = dpix + ((long long)t * kPix + lin) * 8;
-  const float d0 = dp[0], d1 = dp[1], d2 = dp[2], d3 = dp[3], Q = dp[4];
-
-  float T = 1.0f;
-  float S = 0.0f;
-  int done = 0;
-  bool all_done = false;
-
-  for (int base = start; base < end && !all_done; base += kPix) {
-    // every pixel done -> leave; also the barrier before reusing s[][]
-    if (__syncthreads_count(done) == kPix) break;
-    const int idx = base + lin;
-    if (idx < end) {
-#pragma unroll
-      for (int c = 0; c < kCh; ++c) s[c][lin] = inst[c * P + idx];
-    }
-    __syncthreads();
+  gpt::BwdPixel p = gpt::bwd_pixel(t, grid_x, lin, dpix);
+  // each walk ends on a barrier after its last read of s[][]
+  for (int base = start; base < end; base += kPix) {
     const int nb = min(kPix, end - base);
-    for (int sub = 0; sub < nb; sub += kSub) {
-      const int ns = min(kSub, nb - sub);
-      for (int j = 0; j < ns; ++j) {
-        const int i = sub + j;
-        float g[kGrad];
-#pragma unroll
-        for (int k = 0; k < kGrad; ++k) g[k] = 0.0f;
-        bool contrib = false;
-        gpt::PairTerms q;
-        if (!done && gpt::pair_terms(&s[0][i], kPix, px, py, T, q)) {
-          if (q.test_T < gpt::kTEps) {
-            done = 1;
-          } else {
-            contrib = true;
-            const float w = __fmul_rn(q.alpha, T);
-            const float v = __fadd_rn(
-                __fadd_rn(__fadd_rn(__fmul_rn(s[6][i], d0),
-                                    __fmul_rn(s[7][i], d1)),
-                          __fmul_rn(s[8][i], d2)),
-                __fmul_rn(s[9][i], d3));
-            S = __fadd_rn(S, __fmul_rn(w, v));
-            const float dalpha = __fsub_rn(
-                __fmul_rn(T, v),
-                __fdiv_rn(__fsub_rn(Q, S), __fsub_rn(1.0f, q.alpha)));
-            const float dpower = __fmul_rn(__fmul_rn(s[5][i], q.G), dalpha);
-            const float gdx = __fmul_rn(dpower, q.dx);
-            const float gdy = __fmul_rn(dpower, q.dy);
-            g[0] = gdx;
-            g[1] = gdy;
-            g[2] = __fmul_rn(gdx, q.dx);
-            g[3] = __fmul_rn(gdx, q.dy);
-            g[4] = __fmul_rn(gdy, q.dy);
-            g[5] = __fmul_rn(q.G, dalpha);
-            g[6] = __fmul_rn(d0, w);
-            g[7] = __fmul_rn(d1, w);
-            g[8] = __fmul_rn(d2, w);
-            g[9] = __fmul_rn(d3, w);
-            T = q.test_T;
-          }
-        }
-        if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-          for (int k = 0; k < kGrad; ++k) g[k] = warp_sum(g[k]);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int k = 0; k < kGrad; ++k) red[j][warp][k] = g[k];
-        }
-      }
-      __syncthreads();
-      if (lin < ns) {
-        const int i = sub + lin;
-        float a[kGrad];
-#pragma unroll
-        for (int k = 0; k < kGrad; ++k) {
-          float x = red[lin][0][k];
-#pragma unroll
-          for (int wi = 1; wi < kWarps; ++wi) x = __fadd_rn(x, red[lin][wi][k]);
-          a[k] = x;
-        }
-        const float ca = s[2][i], cb = s[3][i], cc = s[4][i];
-        float* o = dinst + (base + i);
-        o[0 * P] = __fadd_rn(__fmul_rn(ca, a[0]), __fmul_rn(cb, a[1]));
-        o[1 * P] = __fadd_rn(__fmul_rn(cb, a[0]), __fmul_rn(cc, a[1]));
-        o[2 * P] = __fmul_rn(-0.5f, a[2]);
-        o[3 * P] = -a[3];
-        o[4 * P] = __fmul_rn(-0.5f, a[4]);
-        o[5 * P] = a[5];
-        o[6 * P] = a[6];
-        o[7 * P] = a[7];
-        o[8 * P] = a[8];
-        o[9 * P] = a[9];
-      }
-      // barrier before red[][] is refilled; leave once every pixel is done
-      if (__syncthreads_count(done) == kPix) {
-        all_done = true;
-        break;
-      }
+    gpt::stage_lane(s, inst, P, base, 0, nb, lin);
+    __syncthreads();
+    if (gpt::bwd_walk(s, red, base, 0, nb, start, end, p, dinst, P, lin,
+                      gpt::BlockBarrier{})) {
+      break;
     }
   }
 }

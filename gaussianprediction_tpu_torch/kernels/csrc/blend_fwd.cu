@@ -13,9 +13,10 @@
 // T *= 1-alpha, done latch at T < 1e-4, tidx = first strict maximum of the
 // blend weight). The block leaves early once every pixel is done.
 //
-// The per-(pixel, instance) arithmetic is gpt::pair_terms (common.cuh),
-// which the backward kernel shares: _rn intrinsics (never contracted into
-// FMAs) in the order of the plain PyTorch version, and IEEE expf.
+// The per-pixel walk is gpt::fwd_walk (common.cuh), which the flat
+// work-list and multi-tile kernels share: gpt::pair_terms's _rn intrinsics
+// (never contracted into FMAs) in the order of the plain PyTorch version,
+// and IEEE expf.
 //
 // Bound on the H100: by the f32 arithmetic of the (pixel, instance) pairs
 // evaluated up to each pixel's done latch (11 to 24 operations a pair,
@@ -38,56 +39,21 @@ blend_fwd_kernel(const float* __restrict__ inst, long long P,
   __shared__ float s[kCh][kPix];
   const int t = blockIdx.x;
   const int lin = threadIdx.x;
-  const int ty = t / grid_x;
-  const int tx = t - ty * grid_x;
-  const float px = (float)(tx * 16 + (lin & 15));
-  const float py = (float)(ty * 16 + (lin >> 4));
+  float px, py;
+  gpt::tile_pixel(t, grid_x, lin, px, py);
   const int start = tile_start[t];
   const int end = tile_end[t];
 
-  float T = 1.0f;
-  int done = 0;
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f, az = 0.0f;
-  float wmax = 0.0f, bgid = -1.0f;
-
+  gpt::FwdPixel p = gpt::fwd_pixel();
   for (int base = start; base < end; base += kPix) {
     // every pixel done -> leave; also the barrier before reusing s[][]
-    if (__syncthreads_count(done) == kPix) break;
-    const int idx = base + lin;
-    if (idx < end) {
-#pragma unroll
-      for (int c = 0; c < kCh; ++c) s[c][lin] = inst[c * P + idx];
-    }
-    __syncthreads();
+    if (__syncthreads_count(p.done) == kPix) break;
     const int nb = min(kPix, end - base);
-    for (int i = 0; i < nb && !done; ++i) {
-      gpt::PairTerms q;
-      if (!gpt::pair_terms(&s[0][i], kPix, px, py, T, q)) continue;
-      if (q.test_T < gpt::kTEps) {
-        done = 1;
-        break;
-      }
-      const float w = __fmul_rn(q.alpha, T);
-      ar = __fadd_rn(ar, __fmul_rn(w, s[6][i]));
-      ag = __fadd_rn(ag, __fmul_rn(w, s[7][i]));
-      ab = __fadd_rn(ab, __fmul_rn(w, s[8][i]));
-      az = __fadd_rn(az, __fmul_rn(w, s[9][i]));
-      T = q.test_T;
-      if (with_tidx && w > wmax) {
-        wmax = w;
-        bgid = s[10][i];
-      }
-    }
+    gpt::stage_lane(s, inst, P, base, 0, nb, lin);
+    __syncthreads();
+    gpt::fwd_walk(s, 0, nb, px, py, with_tidx, p);
   }
-  float* o = out + ((long long)t * kPix + lin) * 8;
-  o[0] = ar;
-  o[1] = ag;
-  o[2] = ab;
-  o[3] = az;
-  o[4] = T;
-  o[5] = wmax;
-  o[6] = bgid;
-  o[7] = 0.0f;
+  gpt::fwd_store(out + ((long long)t * kPix + lin) * 8, p);
 }
 
 }  // namespace

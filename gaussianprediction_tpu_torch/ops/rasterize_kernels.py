@@ -17,11 +17,17 @@ w * v; the gradient flows through the unclamped alpha (dpower = op * G *
 dalpha), as the CUDA backward does. Rows 10-15 of the instance gradient
 are zero: w_max, gid and the pad rows get none.
 
-The env-gated variants (MT, SMT, FLAT) wait for a later slice.
+The launch geometry follows the JAX package's environment variables, read
+at call time (blend_variant): GPT_BLEND_FLAT=1 blends over a flat work list
+of (tile, 256-instance block) items, GPT_BLEND_MT=1 one program per
+GPT_BLEND_TPB tiles over their union window (ops/blend_variants.py); both
+give the classic outputs bit for bit. GPT_BLEND_SMT > 1 raises until its
+kernels are ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,7 +48,57 @@ O_R, O_G, O_B, O_Z, O_T, O_WMAX, O_GID, O_PAD = range(8)
 D_R, D_G, D_B, D_Z, D_Q = range(5)
 
 
-def _check(inst, tile_start, tile_end, grid_x, grid_y):
+class BlendVariant(NamedTuple):
+    kind: str                  # "classic", "flat" or "mt"
+    tpb: Optional[int] = None  # tiles per program ("mt")
+
+
+CLASSIC = BlendVariant("classic")
+
+
+def _env_int(name: str, default: str) -> int:
+    raw = os.environ.get(name, default)
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+
+def blend_variant() -> BlendVariant:
+    """The blend's launch geometry from the environment, read at each call
+    as the JAX package reads it at trace time, with its precedence (FLAT
+    over SMT over MT over classic): GPT_BLEND_FLAT=1 -> flat;
+    GPT_BLEND_SMT > 1 raises NotImplementedError (its kernels are not
+    ported); GPT_BLEND_MT=1 -> mt with GPT_BLEND_TPB tiles per program
+    (default 4; ValueError unless an integer >= 1); else classic."""
+    if os.environ.get("GPT_BLEND_FLAT", "0") == "1":
+        return BlendVariant("flat")
+    smt = _env_int("GPT_BLEND_SMT", "1")
+    if smt > 1:
+        raise NotImplementedError(
+            f"GPT_BLEND_SMT={smt}: the SMT blend kernels (#12/#13) are not "
+            "ported yet (ROADMAP.md, Queue 2)")
+    if os.environ.get("GPT_BLEND_MT", "0") == "1":
+        tpb = _env_int("GPT_BLEND_TPB", "4")
+        if tpb < 1:
+            raise ValueError(f"GPT_BLEND_TPB={tpb}: tiles per program must "
+                             "be >= 1")
+        return BlendVariant("mt", tpb)
+    return CLASSIC
+
+
+def on_card(*tensors) -> bool:
+    """True when every tensor is on a CUDA device, False when none is;
+    raises on a mix."""
+    on = [x.is_cuda for x in tensors]
+    if all(on):
+        return True
+    if any(on):
+        raise ValueError("tensors must all be on one device")
+    return False
+
+
+def check_blend_args(inst, tile_start, tile_end, grid_x, grid_y):
     if inst.dtype != torch.float32 or inst.dim() != 2 or \
             inst.shape[0] != NCH or not inst.is_contiguous():
         raise ValueError("inst must be a contiguous [16, P] float32")
@@ -62,32 +118,30 @@ def _pixel_coords(grid_x, grid_y, device):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def rasterize_binned_plain(inst, tile_start, tile_end, grid_x: int,
-                           grid_y: int, with_tidx: bool = True,
-                           aux: Optional[dict] = None):
-    """Plain PyTorch blend: a loop over the rank inside each tile's
-    segment, vectorised over tiles and pixels, each step the kernel's
-    per-instance arithmetic in the same order. Exits once every pixel is
-    done or past its segment.
+def classic_schedule(start, end):
+    """The classic walk: step r hands every tile its segment's instance of
+    rank r. Each schedule yields, per step, (idx [T] int64: the instance
+    each tile is handed; live [T]: idx lies in the tile's segment; pending
+    [T]: the tile has instances at or after this step)."""
+    seg = (end - start).clamp(min=0)
+    L = int(seg.max()) if seg.numel() else 0
+    for r in range(L):
+        live = r < seg
+        yield start + r, live, live
 
-    aux (a dict, optional) receives "w2", the runner-up blend weight of
-    each pixel ([T, 256]; for tidx comparisons that skip near-ties), and
-    the data-dependent work of the blend: "pairs", the (pixel, instance)
-    evaluations up to each pixel's done latch; "flops", the f32
-    arithmetic those evaluations need (11 for the conic of a valid
-    instance, 2 more for exp and the opacity product where power <= 0, 2
-    for 1 - alpha and the T product where alpha >= 1/255, 9 for the
-    weight and the four sums where it contributes; compares and clamps not
-    counted, exp counted as one); "instances", the segment instances read
-    up to the rank at which every pixel of the tile is done."""
+
+def blend_fwd_walk(inst, grid_x: int, grid_y: int, with_tidx: bool,
+                   schedule, aux: Optional[dict] = None):
+    """The plain forward blend over a schedule (classic_schedule or one of
+    ops/blend_variants.py): at each step every tile blends the instance it
+    is handed into its 256 pixels with the kernel's per-instance arithmetic
+    in the same order, vectorised over tiles and pixels. Any schedule that
+    hands each tile its segment in order gives the same bits. Stops once
+    every pixel is done or past its segment (checked every 64 steps)."""
     dev = inst.device
     T = grid_x * grid_y
     P = inst.shape[1]
     px, py = _pixel_coords(grid_x, grid_y, dev)
-    start = tile_start.to(torch.int64)
-    seg = (tile_end.to(torch.int64) - start).clamp(min=0)
-    L = int(seg.max()) if T else 0
-
     Tr = torch.ones((T, PIX), dtype=torch.float32, device=dev)
     done = torch.zeros((T, PIX), dtype=torch.bool, device=dev)
     acc = [torch.zeros((T, PIX), dtype=torch.float32, device=dev)
@@ -99,11 +153,11 @@ def rasterize_binned_plain(inst, tile_start, tile_end, grid_x: int,
     flops = torch.zeros((), dtype=torch.int64, device=dev)
     insts = torch.zeros((), dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for r in range(L):
-        if r % 64 == 0 and r and bool((done | (r >= seg)[:, None]).all()):
+    for k, (idx, live, pending) in enumerate(schedule):
+        if k % 64 == 0 and k and bool((done | ~pending[:, None]).all()):
             break
-        active = (r < seg)[:, None] & ~done
-        d = inst[:, (start + r).clamp(max=P - 1)][:, :, None]  # [16, T, 1]
+        active = live[:, None] & ~done
+        d = inst[:, idx.clamp(0, P - 1)][:, :, None]          # [16, T, 1]
         dx = px - d[C_MX]
         dy = py - d[C_MY]
         power = -0.5 * (d[C_CA] * dx * dx + d[C_CC] * dy * dy) \
@@ -114,12 +168,12 @@ def rasterize_binned_plain(inst, tile_start, tile_end, grid_x: int,
         test_T = Tr * (1.0 - alpha)
         trigger = valid & (test_T < T_EPS)
         if aux is not None:
-            live = active & (d[C_VALID] > 0.5)
-            pow_ok = live & (power <= 0.0)
+            live_pair = active & (d[C_VALID] > 0.5)
+            pow_ok = live_pair & (power <= 0.0)
             pairs += active.sum()
             insts += active.any(dim=1).sum()
-            flops += 11 * live.sum() + 2 * pow_ok.sum() + 2 * valid.sum() \
-                + 9 * (valid & ~trigger).sum()
+            flops += 11 * live_pair.sum() + 2 * pow_ok.sum() \
+                + 2 * valid.sum() + 9 * (valid & ~trigger).sum()
         contrib = valid & ~trigger
         w = torch.where(contrib, alpha * Tr, zero)
         for c in range(4):
@@ -140,20 +194,50 @@ def rasterize_binned_plain(inst, tile_start, tile_end, grid_x: int,
     return torch.stack(acc + [Tr, wmax, bgid, torch.zeros_like(Tr)], dim=-1)
 
 
+def rasterize_binned_plain(inst, tile_start, tile_end, grid_x: int,
+                           grid_y: int, with_tidx: bool = True,
+                           aux: Optional[dict] = None):
+    """Plain PyTorch blend: blend_fwd_walk over the rank inside each tile's
+    segment (classic_schedule).
+
+    aux (a dict, optional) receives "w2", the runner-up blend weight of
+    each pixel ([T, 256]; for tidx comparisons that skip near-ties), and
+    the data-dependent work of the blend: "pairs", the (pixel, instance)
+    evaluations up to each pixel's done latch; "flops", the f32
+    arithmetic those evaluations need (11 for the conic of a valid
+    instance, 2 more for exp and the opacity product where power <= 0, 2
+    for 1 - alpha and the T product where alpha >= 1/255, 9 for the
+    weight and the four sums where it contributes; compares and clamps not
+    counted, exp counted as one); "instances", the segment instances read
+    up to the rank at which every pixel of the tile is done."""
+    sched = classic_schedule(tile_start.to(torch.int64),
+                             tile_end.to(torch.int64))
+    return blend_fwd_walk(inst, grid_x, grid_y, with_tidx, sched, aux)
+
+
 def rasterize_binned(inst, tile_start, tile_end, grid_x: int, grid_y: int,
-                     with_tidx: bool = True):
+                     with_tidx: bool = True,
+                     variant: Optional[BlendVariant] = None):
     """Blend packed instances into per-tile buffers.
 
     inst: [16, P] float32 instance SoA; tile_start/tile_end: [T] int32
     segment bounds (unaligned, non-overlapping, ordered by tile). Returns
     [T, 256, 8] float32: r, g, b, depth, T_final, w_max, best gid, pad.
     with_tidx=False leaves w_max 0 and gid -1 (training never reads
-    them)."""
-    _check(inst, tile_start, tile_end, grid_x, grid_y)
+    them). variant: the launch geometry (default blend_variant()); every
+    variant gives the same bits."""
+    check_blend_args(inst, tile_start, tile_end, grid_x, grid_y)
+    variant = variant or blend_variant()
+    if variant.kind != "classic":
+        from gaussianprediction_tpu_torch.ops import blend_variants as bv
+
+        if variant.kind == "flat":
+            return bv.rasterize_binned_flat(inst, tile_start, tile_end,
+                                            grid_x, grid_y, with_tidx)
+        return bv.rasterize_binned_mt(inst, tile_start, tile_end, grid_x,
+                                      grid_y, variant.tpb, with_tidx)
     T = grid_x * grid_y
-    if not (inst.is_cuda and tile_start.is_cuda and tile_end.is_cuda):
-        if inst.is_cuda or tile_start.is_cuda or tile_end.is_cuda:
-            raise ValueError("tensors must all be on one device")
+    if not on_card(inst, tile_start, tile_end):
         return rasterize_binned_plain(inst, tile_start, tile_end, grid_x,
                                       grid_y, with_tidx)
     from gaussianprediction_tpu_torch.kernels import build
@@ -170,7 +254,7 @@ def rasterize_binned(inst, tile_start, tile_end, grid_x: int, grid_y: int,
 # ------------------------------------------------------------- backward
 
 
-def _check_dpix(dpix, T):
+def check_dpix(dpix, T):
     if dpix.dtype != torch.float32 or dpix.shape != (T, PIX, 8) or \
             not dpix.is_contiguous():
         raise ValueError(f"dpix must be a contiguous [{T}, {PIX}, 8] float32")
@@ -186,41 +270,41 @@ def pixel_grads(out, g):
                      dim=-1).contiguous()
 
 
-def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
-                               grid_y: int, dpix, aux: Optional[dict] = None):
-    """Plain PyTorch backward blend: the forward's loop over the rank inside
-    each tile's segment, vectorised over tiles and pixels, with the
-    kernel's per-pixel arithmetic in the same order and the ten per-pixel
-    products of each instance summed over its tile's 256 pixels.
+SUB = 32   # instances per reduction sub-batch of the backward kernels
 
-    aux (optional) receives the data-dependent work: "pairs", "instances"
-    and "flops" as rasterize_binned_plain counts them, with 37 more f32
-    operations for each contributing pair (w, v, S, dalpha, dpower, the
-    ten products and their sums over the pixels)."""
+
+def blend_bwd_walk(inst, tile_start, tile_end, grid_x: int, grid_y: int,
+                   dpix, schedule, aux: Optional[dict] = None):
+    """The plain backward blend over a schedule (as blend_fwd_walk): at each
+    step every tile recomputes the forward for the instance it is handed,
+    with the kernel's per-pixel arithmetic in the same order, and sums the
+    ten per-pixel products over its 256 pixels. A tile writes the columns of
+    its segment up to the end of the sub-batch of 32 ranks in which its last
+    pixel latched done, as the kernels do, so any schedule that hands each
+    tile its segment in order writes the same columns with the same bits."""
     dev = inst.device
     T = grid_x * grid_y
     P = inst.shape[1]
     px, py = _pixel_coords(grid_x, grid_y, dev)
     start = tile_start.to(torch.int64)
-    seg = (tile_end.to(torch.int64) - start).clamp(min=0)
-    L = int(seg.max()) if T else 0
+    end = tile_end.to(torch.int64)
     d0, d1, d2, d3 = (dpix[..., c] for c in range(D_R, D_Z + 1))
     Q = dpix[..., D_Q]
 
     Tr = torch.ones((T, PIX), dtype=torch.float32, device=dev)
     done = torch.zeros((T, PIX), dtype=torch.bool, device=dev)
     S = torch.zeros((T, PIX), dtype=torch.float32, device=dev)
+    stopped = torch.zeros((T,), dtype=torch.bool, device=dev)
     dinst = torch.zeros_like(inst)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
     flops = torch.zeros((), dtype=torch.int64, device=dev)
     insts = torch.zeros((), dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for r in range(L):
-        if r % 64 == 0 and r and bool((done | (r >= seg)[:, None]).all()):
+    for k, (idx, live, pending) in enumerate(schedule):
+        if k % 64 == 0 and k and bool((stopped | ~pending).all()):
             break
-        live_tile = r < seg
-        active = live_tile[:, None] & ~done
-        col = (start + r).clamp(max=P - 1)
+        active = live[:, None] & ~done
+        col = idx.clamp(0, P - 1)
         d = inst[:, col][:, :, None]                           # [16, T, 1]
         dx = px - d[C_MX]
         dy = py - d[C_MY]
@@ -234,10 +318,11 @@ def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
         trigger = valid & (test_T < T_EPS)
         contrib = valid & ~trigger
         if aux is not None:
-            live = active & (d[C_VALID] > 0.5)
+            live_pair = active & (d[C_VALID] > 0.5)
             pairs += active.sum()
             insts += active.any(dim=1).sum()
-            flops += 11 * live.sum() + 2 * (live & (power <= 0.0)).sum() \
+            flops += 11 * live_pair.sum() \
+                + 2 * (live_pair & (power <= 0.0)).sum() \
                 + 2 * valid.sum() + 37 * contrib.sum()
         w = alpha * Tr
         v = d[C_R] * d0 + d[C_G] * d1 + d[C_B] * d2 + d[C_Z] * d3
@@ -254,9 +339,12 @@ def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
         grads = torch.stack([ca * sx + cb * sy, cb * sx + cc * sy,
                              -0.5 * sxx, -sxy, -0.5 * syy, sop, sr, sg, sb,
                              sz])                              # [10, T]
-        dinst[:10, col[live_tile]] = grads[:, live_tile]
+        write = live & ~stopped
+        dinst[:10, col[write]] = grads[:, write]
         Tr = torch.where(contrib, test_T, Tr)
         done = done | trigger
+        edge = ((idx - start + 1) % SUB == 0) | (idx + 1 == end)
+        stopped = stopped | (live & edge & done.all(dim=1))
     if aux is not None:
         aux["pairs"] = int(pairs)
         aux["flops"] = int(flops)
@@ -264,18 +352,40 @@ def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
     return dinst
 
 
+def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
+                               grid_y: int, dpix, aux: Optional[dict] = None):
+    """Plain PyTorch backward blend: blend_bwd_walk over the rank inside
+    each tile's segment (classic_schedule).
+
+    aux (optional) receives the data-dependent work: "pairs", "instances"
+    and "flops" as rasterize_binned_plain counts them, with 37 more f32
+    operations for each contributing pair (w, v, S, dalpha, dpower, the
+    ten products and their sums over the pixels)."""
+    sched = classic_schedule(tile_start.to(torch.int64),
+                             tile_end.to(torch.int64))
+    return blend_bwd_walk(inst, tile_start, tile_end, grid_x, grid_y, dpix,
+                          sched, aux)
+
+
 def rasterize_binned_bwd(inst, tile_start, tile_end, grid_x: int,
-                         grid_y: int, dpix):
+                         grid_y: int, dpix,
+                         variant: Optional[BlendVariant] = None):
     """Instance gradients [16, P] (rows 0-9: d mx, my, ca, cb, cc, op, r,
     g, b, z; rows 10-15 zero) from the per-pixel inputs dpix [T, 256, 8]
-    (pixel_grads)."""
-    _check(inst, tile_start, tile_end, grid_x, grid_y)
+    (pixel_grads). variant as rasterize_binned's."""
+    check_blend_args(inst, tile_start, tile_end, grid_x, grid_y)
     T = grid_x * grid_y
-    _check_dpix(dpix, T)
-    on = [x.is_cuda for x in (inst, tile_start, tile_end, dpix)]
-    if not all(on):
-        if any(on):
-            raise ValueError("tensors must all be on one device")
+    check_dpix(dpix, T)
+    variant = variant or blend_variant()
+    if variant.kind != "classic":
+        from gaussianprediction_tpu_torch.ops import blend_variants as bv
+
+        if variant.kind == "flat":
+            return bv.rasterize_binned_bwd_flat(inst, tile_start, tile_end,
+                                                grid_x, grid_y, dpix)
+        return bv.rasterize_binned_bwd_mt(inst, tile_start, tile_end,
+                                          grid_x, grid_y, variant.tpb, dpix)
+    if not on_card(inst, tile_start, tile_end, dpix):
         return rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x,
                                           grid_y, dpix)
     from gaussianprediction_tpu_torch.kernels import build
@@ -292,13 +402,15 @@ def rasterize_binned_bwd(inst, tile_start, tile_end, grid_x: int,
 class RasterizeBinned(torch.autograd.Function):
     """rasterize_binned with its gradient w.r.t. the instance SoA (the
     twin of the JAX custom_vjp's _rasterize_fwd_rule/_rasterize_bwd_rule).
-    Gradients of w_max and gid (output channels 5-6) are ignored."""
+    Gradients of w_max and gid (output channels 5-6) are ignored. The
+    forward's blend_variant() is kept for the backward."""
 
     @staticmethod
     def forward(ctx, inst, tile_start, tile_end, grid_x, grid_y,
                 with_tidx=False):
+        ctx.variant = blend_variant()
         out = rasterize_binned(inst, tile_start, tile_end, grid_x, grid_y,
-                               with_tidx)
+                               with_tidx, variant=ctx.variant)
         ctx.save_for_backward(inst, tile_start, tile_end, out)
         ctx.grid = (grid_x, grid_y)
         return out
@@ -308,5 +420,5 @@ class RasterizeBinned(torch.autograd.Function):
         inst, tile_start, tile_end, out = ctx.saved_tensors
         dpix = pixel_grads(out, g)
         dinst = rasterize_binned_bwd(inst, tile_start, tile_end, *ctx.grid,
-                                     dpix)
+                                     dpix, variant=ctx.variant)
         return dinst, None, None, None, None, None

@@ -18,7 +18,13 @@ roundoff bound; on the card the plain version's index_add_ sums with
 atomics in no fixed order) and to the serial sum on the CPU bit for bit
 (the kernel sums each run in stream order, as that loop does), with two
 launches bit-identical; a stage-2 step run twice from one state is
-bit-identical. Whether a card is present is decided inside the
+bit-identical. The flat work-list and multi-tile blend kernels
+(GPT_BLEND_FLAT, GPT_BLEND_MT) are held to the classic kernels bit for bit
+(every bit of the output, forward and backward, two launches identical)
+and to their plain versions at the classic kernels' tolerances, on a
+random stream, a skewed one (one tile's segment of 100,003 instances) and
+one with empty tiles, the last among them. Whether a card is present is
+decided inside the
 `cuda_device` fixture; without one every test here skips.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -30,12 +36,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import cuda_device  # noqa: F401
+from torch_port_util import crafted_stream, cuda_device  # noqa: F401
 
 from gaussianprediction_tpu_torch.data.synthetic import (
     orbit_camera, random_gaussians,
 )
 from gaussianprediction_tpu_torch.kernels import launch_counts
+from gaussianprediction_tpu_torch.ops import blend_variants as TBV
 from gaussianprediction_tpu_torch.ops import expand as TE
 from gaussianprediction_tpu_torch.ops import hashgrid_kernels as THK
 from gaussianprediction_tpu_torch.ops import rasterize_kernels as TR
@@ -171,6 +178,108 @@ def test_blend_bwd_kernel_equals_plain(cuda_device, boost):
     bad = ((a[:10] - ref[:10]).abs() > 1e-5 * scale).any(dim=0)
     assert float(ref[:10].abs().max()) > 0
     assert int(bad.sum()) <= 1e-3 * int((ref[:10] != 0).any(dim=0).sum())
+
+
+def _variant_stream(case, dev):
+    """(inst, tile_start, tile_end, grid_x, grid_y, plain device) of a
+    blend-variant case; the crafted ones' plain versions run on the CPU
+    (their grids are small, their walks long)."""
+    if case == "random":
+        s, g = _stream_on(dev, 20_000, 0.0)
+        return s.inst, s.tile_start, s.tile_end, g, g, dev
+    if case == "skewed":    # the last tile's segment: 100,003 instances
+        counts, gx = [700, 250, 40, 100_003], 2
+        arrs = crafted_stream(counts, gx, 5, sigma=(0.5, 1.5),
+                              opacity=(0.1, 0.6))
+    else:                   # empty tiles, the first and the last among them
+        counts, gx = [0, 300, 0, 0, 700, 256, 1, 513, 0, 255, 257, 1000, 0,
+                      40, 0], 5
+        arrs = crafted_stream(counts, gx, 6)
+    inst, ts, te = (torch.from_numpy(a).to(dev) for a in arrs)
+    return inst, ts, te, gx, len(counts) // gx, torch.device("cpu")
+
+
+VARIANTS = [TR.BlendVariant("flat"), TR.BlendVariant("mt", 1),
+            TR.BlendVariant("mt", 3), TR.BlendVariant("mt", 4),
+            TR.BlendVariant("mt", 8)]
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "empty"])
+def test_blend_variant_kernels_equal_classic(cuda_device, case):
+    inst, ts, te, gx, gy, _ = _variant_stream(case, cuda_device)
+    ref = TR.rasterize_binned(inst, ts, te, gx, gy, True, TR.CLASSIC)
+    cot = torch.randn(ref.shape, device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(0))
+    dpix = TR.pixel_grads(ref, cot)
+    dref = TR.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix, TR.CLASSIC)
+    assert float(dref[:10].abs().max()) > 0
+    for v in VARIANTS:
+        before = dict(launch_counts)
+        outs = [TR.rasterize_binned(inst, ts, te, gx, gy, True, v)
+                for _ in range(2)]
+        douts = [TR.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix, v)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        for k in (f"blend_fwd_{v.kind}", f"blend_bwd_{v.kind}"):
+            assert launch_counts[k] == before.get(k, 0) + 2, (v, k)
+        for a in outs:
+            assert torch.equal(_bits(a), _bits(ref)), v
+        for a in douts:
+            assert torch.equal(_bits(a), _bits(dref)), v
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "empty"])
+@pytest.mark.parametrize("variant", [VARIANTS[0], VARIANTS[3]],
+                         ids=["flat", "mt4"])
+def test_blend_variant_kernels_equal_plain(cuda_device, case, variant):
+    """At the classic kernels' tolerances (test_blend_kernel_equals_plain,
+    test_blend_bwd_kernel_equals_plain)."""
+    inst, ts, te, gx, gy, pdev = _variant_stream(case, cuda_device)
+    out = TR.rasterize_binned(inst, ts, te, gx, gy, True, variant)
+    cot = torch.randn(out.shape, device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(1))
+    dpix = TR.pixel_grads(out, cot)
+    dout = TR.rasterize_binned_bwd(inst, ts, te, gx, gy, dpix, variant)
+    pargs = [x.to(pdev) for x in (inst, ts, te)] + [gx, gy]
+    aux = {}
+    if variant.kind == "flat":
+        ref = TBV.rasterize_binned_flat_plain(*pargs, True, aux=aux)
+        dref = TBV.rasterize_binned_bwd_flat_plain(*pargs, dpix.to(pdev))
+    else:
+        ref = TBV.rasterize_binned_mt_plain(*pargs, variant.tpb, True,
+                                            aux=aux)
+        dref = TBV.rasterize_binned_bwd_mt_plain(*pargs, variant.tpb,
+                                                 dpix.to(pdev))
+    out, dout = out.to(pdev), dout.to(pdev)
+    err = (out - ref).abs()
+    assert float(err[..., [0, 1, 2, 4]].max()) <= 2e-5
+    assert float(err[..., 3].max()) <= 2e-4
+    wmax = ref[..., TR.O_WMAX]
+    clear = (wmax - aux["w2"]) > 1e-6 * wmax
+    assert torch.equal(out[..., TR.O_GID][clear], ref[..., TR.O_GID][clear])
+    assert not dout[10:].any()
+    scale = dref[:10].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    bad = ((dout[:10] - dref[:10]).abs() > 1e-5 * scale).any(dim=0)
+    assert float(dref[:10].abs().max()) > 0
+    assert int(bad.sum()) <= 1e-3 * int((dref[:10] != 0).any(dim=0).sum())
+
+
+def test_blend_variant_wrappers_reject_mixed_devices(cuda_device):
+    ts = torch.zeros(1, dtype=torch.int32)
+    inst = torch.zeros((16, 8), device=cuda_device)
+    dpix = torch.zeros((1, 256, 8))
+    with pytest.raises(ValueError):
+        TBV.rasterize_binned_flat(inst, ts, ts, 1, 1)
+    with pytest.raises(ValueError):
+        TBV.rasterize_binned_bwd_flat(inst, ts, ts, 1, 1, dpix)
+    with pytest.raises(ValueError):
+        TBV.rasterize_binned_mt(inst, ts, ts, 1, 1, 4)
+    with pytest.raises(ValueError):
+        TBV.rasterize_binned_bwd_mt(inst, ts, ts, 1, 1, 4, dpix)
 
 
 def test_scan_kernels_equal_cumsum(cuda_device):

@@ -108,3 +108,38 @@ def jax_state(params, alive):
         denom=zeros(), max_radii2D=zeros(jnp.int32),
         xyz_motion_accum_max=zeros(), motion_denom=zeros(),
     )
+
+
+def crafted_stream(counts, grid_x, seed, sigma=(0.5, 4.0),
+                   opacity=(0.02, 0.9), far=0.0, tail=77):
+    """A blend input made directly, without a scene: tile t's segment holds
+    counts[t] instances (segments consecutive, tiles in order, `tail`
+    unused slots after the last), each a random Gaussian footprint of
+    scale `sigma` pixels and opacity `opacity` centred in or near its
+    tile; a share `far` of them sits 1000 pixels away (read, never
+    blended) and 5% are invalid. Returns (inst [16, P] float32,
+    tile_start, tile_end [T] int32) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    ends = np.cumsum(counts)
+    n = int(ends[-1]) if counts.size else 0
+    tile = np.repeat(np.arange(counts.size), counts)
+    inst = np.zeros((16, n + tail), np.float32)
+    pos = rng.uniform(-4.0, 20.0, (2, n))
+    pos[:, rng.random(n) < far] += 1000.0
+    inst[0, :n] = (tile % grid_x) * 16 + pos[0]
+    inst[1, :n] = (tile // grid_x) * 16 + pos[1]
+    s1, s2 = rng.uniform(*sigma, (2, n))
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    # conic = the inverse of R diag(s1^2, s2^2) R^T
+    i1, i2 = 1.0 / s1 ** 2, 1.0 / s2 ** 2
+    inst[2, :n] = c * c * i1 + s * s * i2
+    inst[3, :n] = c * s * (i1 - i2)
+    inst[4, :n] = s * s * i1 + c * c * i2
+    inst[5, :n] = rng.uniform(*opacity, n)
+    inst[6:9, :n] = rng.uniform(0.0, 1.0, (3, n))
+    inst[9, :n] = rng.uniform(1.0, 5.0, n)
+    inst[10, :n] = rng.permutation(n)
+    inst[11, :n] = rng.random(n) > 0.05
+    return (inst, (ends - counts).astype(np.int32), ends.astype(np.int32))
