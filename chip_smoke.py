@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stage-1 eval render and its training steps of
-every stage on one NVIDIA H100.
+"""Drive the PyTorch port's stage-1 eval render, its training steps of
+every stage and its Trainer loop on one NVIDIA H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -43,18 +43,19 @@ the run with a non-zero exit and no result line):
      batched (interleave + cumsum_rows), each against serial on the same
      state: the per-Gaussian gradient within f32 cumsum roundoff;
  11. a torch.profiler breakdown of one training step;
- 12. blend variants (GPT_BLEND_FLAT=1; GPT_BLEND_MT=1 at TPB 4 and 3): on
-     the first view's stream and the dpix of a stage-1 step from the
-     trained state, each variant's forward kernel equal bit for bit to the
-     classic blend_fwd kernel and to its plain version, its backward kernel
-     equal bit for bit to the classic blend_bwd kernel and within 1e-5 of
-     each row's largest magnitude of its plain version, two launches of
-     each bit-identical; then render_set of the 5 views and one stage-1
-     step under FLAT and under MT (TPB 4), with the counts set to 0 just
-     before each: images, loss and params equal to the classic path's bit
-     for bit, each variant kernel launched (5 and 1 times) and the classic
-     ones not; ms per view and per step (6 steps from one state) beside the
-     classic path's; a profile of one view and one step under each;
+ 12. blend variants (GPT_BLEND_FLAT=1; GPT_BLEND_MT=1 at TPB 4 and 3;
+     GPT_BLEND_SMT at 4 and 3): on the first view's stream and the dpix of
+     a stage-1 step from the trained state, each variant's forward kernel
+     equal bit for bit to the classic blend_fwd kernel and to its plain
+     version, its backward kernel equal bit for bit to the classic
+     blend_bwd kernel and within 1e-5 of each row's largest magnitude of
+     its plain version, two launches of each bit-identical; then render_set
+     of the 5 views and one stage-1 step under FLAT, MT (TPB 4) and SMT
+     (4), with the counts set to 0 just before each: images, loss and
+     params equal to the classic path's bit for bit, each variant kernel
+     launched (5 and 1 times) and the classic ones not; ms per view and per
+     step (6 steps from one state) beside the classic path's; a profile of
+     one view and one step under each;
  13. the 1->2 transition of the trained stage-1 model at iteration 30001:
      a smooth non-zero motion feature, a seeded hash-grid weight model (16
      levels, F=4, T=2^19, the 2x64 MLP), k-means keypoints
@@ -75,15 +76,35 @@ the run with a non-zero exit and no result line):
      and the gathers by name), then the encoder's gather (and the 2-d
      index_select it replaces, checked equal) and the table gradient's
      stable sort, each timed alone with CUDA events;
- 18. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 18. the Trainer (train/loop.py) at the dnerf preset's full width under
+     GPT_BLEND_SMT=4: a synthetic dynamic scene at 800x800 (100,000
+     ground-truth Gaussians, 20 train and 3 test views) and run() over a
+     schedule compressed to 700 iterations (trainer_schedule), with the
+     counts set to 0 just before: every stage and host event fires (the
+     transitions, densify, prune, the opacity reset, the capacity
+     re-probe, keypoints growing past 100); no instance stream of the run
+     fills its capacity, and the instances that rects capped at 1024
+     tiles drop (the JAX package's render cap, met by the one or two
+     Gaussians that grow over 41% of a view) stay within 1e-3 of their
+     stream, both printed; history.json, the TensorBoard events, the PLY
+     and the checkpoint written; the test PSNR at 400 at least 1 dB above
+     the initial state's, the stage-3 loss falling; ms per iteration per
+     stage (CUDA events around train_one) and a profile of one stage-2
+     iteration;
+ 19. a second Trainer loads the checkpoint at 600 and runs to 700 under the
+     classic blend: its final parameters equal the first run's bit for bit
+     (within 1e-5 of each leaf's largest magnitude when its load re-probe
+     chose another capacity multiplier);
+ 20. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
   python3 chip_smoke.py                # on a machine with one CUDA card
   python3 chip_smoke.py --rehearse     # the same phases on the CPU at 2k
                                        # Gaussians and 128x128 (3 steps a
-                                       # stage), plain versions, no result
-                                       # line
+                                       # stage; the Trainer at 64x64 over
+                                       # 140 iterations), plain versions,
+                                       # no result line
 """
 from __future__ import annotations
 
@@ -113,6 +134,8 @@ REPLACES = {
     "blend_bwd_flat": "gaussianprediction_tpu/ops/rasterize_pallas.py:1533",
     "blend_fwd_mt": "gaussianprediction_tpu/ops/rasterize_pallas.py:1038",
     "blend_bwd_mt": "gaussianprediction_tpu/ops/rasterize_pallas.py:1155",
+    "blend_fwd_smt": "gaussianprediction_tpu/ops/rasterize_pallas.py:895",
+    "blend_bwd_smt": "gaussianprediction_tpu/ops/rasterize_pallas.py:681",
 }
 SOURCES = {
     "stack": "gaussianprediction_tpu_torch/kernels/csrc/stack_rows.cu",
@@ -134,6 +157,10 @@ SOURCES = {
         "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd_mt.cu",
     "blend_bwd_mt":
         "gaussianprediction_tpu_torch/kernels/csrc/blend_bwd_mt.cu",
+    "blend_fwd_smt":
+        "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd_smt.cu",
+    "blend_bwd_smt":
+        "gaussianprediction_tpu_torch/kernels/csrc/blend_bwd_smt.cu",
 }
 # the __global__ functions of each kernel, as torch.profiler names them
 # (the scan is three: block sums, their scan, the block scans)
@@ -151,14 +178,20 @@ DEVICE_NAMES = {
     "blend_bwd_flat": ("blend_bwd_flat_kernel",),
     "blend_fwd_mt": ("blend_fwd_mt_kernel",),
     "blend_bwd_mt": ("blend_bwd_mt_kernel",),
+    "blend_fwd_smt": ("blend_fwd_smt_kernel",),
+    "blend_bwd_smt": ("blend_bwd_smt_kernel",),
 }
 # the blend variants' environments (GPT_BLEND_*): the kernels line carries
-# FLAT and MT at TPB 4; TPB 3 is checked on the same inputs
+# FLAT, MT at TPB 4 and SMT at 4; TPB 3 and SMT 3 are checked on the same
+# inputs
 VARIANT_ENV = {
     "flat": {"GPT_BLEND_FLAT": "1"},
     "mt": {"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "4"},
     "mt3": {"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "3"},
+    "smt": {"GPT_BLEND_SMT": "4"},
+    "smt3": {"GPT_BLEND_SMT": "3"},
 }
+SMT_ENV = VARIANT_ENV["smt"]   # the Trainer phase's blend
 FWD_KERNELS = ("stack", "expand", "interleave", "blend_fwd")
 EPS32 = 2.0 ** -24
 
@@ -245,15 +278,17 @@ def make_params(cfg, n: int, seed: int):
 
 class Capture:
     """Records the arguments the main path hands each kernel wrapper (the
-    last call of each), and what it returned."""
+    last call of each), and what it returned; `note(name, args, out)`, when
+    given, is called after every call (to read counts at rare events)."""
 
-    def __init__(self, targets=None):
+    def __init__(self, targets=None, note=None):
         from gaussianprediction_tpu_torch.ops import expand
         from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
 
         self.targets = targets or [
             (expand, "stack_rows"), (expand, "expand_emit"),
             (expand, "interleave_rows"), (rk, "rasterize_binned")]
+        self.note = note
         self.args = {}
         self.out = {}
 
@@ -266,6 +301,8 @@ class Capture:
             def wrapper(*a, _orig=orig, _name=name, **k):
                 self.args[_name] = (a, k)
                 self.out[_name] = _orig(*a, **k)
+                if self.note is not None:
+                    self.note(_name, a, self.out[_name])
                 return self.out[_name]
 
             setattr(mod, name, wrapper)
@@ -436,17 +473,20 @@ def oracle_check(dev, seed: int) -> None:
 
 
 def profile(run, dev, label: str, reps: int = 3, top: int = 15,
-            named=None) -> dict:
+            named=None, warmup: bool = True) -> dict:
     """Device time by kernel over `reps` calls of run() and the device's
     busy share of that window (torch.profiler; CUPTI). Only device-side
     events are summed: an operator's own row would count its kernels a
     second time. Returns each ported kernel's mean device ms per launch
     (the sum over its __global__ functions; None when not launched).
     named: {label: substrings}; prints the device ms per call of run() of
-    the kernels whose names hold any of the substrings."""
+    the kernels whose names hold any of the substrings. warmup=False
+    skips the call before the profiled ones (for a run() that must be
+    called only once)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    run()
+    if warmup:
+        run()
     sync(dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with tprofile(activities=acts, acc_events=True) as prof:
@@ -885,14 +925,14 @@ def step_ms(step, args, dev, n: int):
 
 def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
                    fwd_args, ctx, rehearse: bool, reps: int):
-    """Phase 'blend variants': the flat work-list (GPT_BLEND_FLAT) and
-    multi-tile (GPT_BLEND_MT, TPB 4 and 3) blends at the main path's
-    width. Their kernels against the classic kernels (bit for bit) and their
-    plain versions on the first view's stream and a stage-1 step's dpix;
-    render_set of the views and a stage-1 step under FLAT and MT (TPB 4)
-    against the classic path, bit for bit; each path's ms beside the
-    classic path's. Returns (res, launches, device_ms) for the kernels
-    line."""
+    """Phase 'blend variants': the flat work-list (GPT_BLEND_FLAT),
+    multi-tile (GPT_BLEND_MT, TPB 4 and 3) and sequential-tile
+    (GPT_BLEND_SMT, 4 and 3) blends at the main path's width. Their kernels
+    against the classic kernels (bit for bit) and their plain versions on
+    the first view's stream and a stage-1 step's dpix; render_set of the
+    views and a stage-1 step under FLAT, MT (TPB 4) and SMT (4) against the
+    classic path, bit for bit; each path's ms beside the classic path's.
+    Returns (res, launches, device_ms) for the kernels line."""
     from gaussianprediction_tpu_torch import kernels
     from gaussianprediction_tpu_torch.eval.render import (
         make_render_fn, render_set,
@@ -942,6 +982,9 @@ def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
             if kind == "flat":
                 ref = BV.rasterize_binned_flat_plain(
                     finst, fts, fte, fgx, fgy, with_tidx, aux=aux)
+            elif kind == "smt":
+                ref = BV.rasterize_binned_smt_plain(
+                    finst, fts, fte, fgx, fgy, v.tpb, with_tidx, aux=aux)
             else:
                 ref = BV.rasterize_binned_mt_plain(
                     finst, fts, fte, fgx, fgy, v.tpb, with_tidx, aux=aux)
@@ -950,6 +993,9 @@ def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
             if kind == "flat":
                 dref = BV.rasterize_binned_bwd_flat_plain(
                     inst, ts, te, gx, gy, dpix, aux=auxb)
+            elif kind == "smt":
+                dref = BV.rasterize_binned_bwd_smt_plain(
+                    inst, ts, te, gx, gy, v.tpb, dpix, aux=auxb)
             else:
                 dref = BV.rasterize_binned_bwd_mt_plain(
                     inst, ts, te, gx, gy, v.tpb, dpix, aux=auxb)
@@ -968,7 +1014,7 @@ def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
             if not all(ok.values()) or da[10:].any() or \
                     n_bad > 1e-3 * max(n_live, 1):
                 raise AssertionError(f"{key} blend disagrees")
-            if key == "mt3":
+            if key in ("mt3", "smt3"):
                 continue
             T, Tb = fgx * fgy, gx * gy
             lst = lstb = 0          # the work list read by the kernels
@@ -997,7 +1043,7 @@ def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
     cam0 = views[0].to_device_dict(dev)
     t0v = torch.tensor(views[0].time, dtype=torch.float32, device=dev)
     for key, env in (("classic", {}), ("flat", VARIANT_ENV["flat"]),
-                     ("mt", VARIANT_ENV["mt"])):
+                     ("mt", VARIANT_ENV["mt"]), ("smt", VARIANT_ENV["smt"])):
         with Phase(f"blend variants: render_set and stage-1 steps, {key}"):
             with variant_env(env):
                 kernels.reset_launch_counts()
@@ -1297,6 +1343,287 @@ def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
     return res, launches, {"scatter_add_sorted": dm["scatter_add_sorted"]}
 
 
+def trainer_schedule(cfg, u: int, model_path: str):
+    """The dnerf recipe's events compressed onto 7u iterations through the
+    config fields train.py's flags set: stage 1 from u; densify every u
+    after u through 4u (the last capacity re-probe sees the footprints
+    regrown after the reset); an opacity reset at 3u; stage 2 from 4u + 1, stage
+    3 from 5.5u + 1; keypoint growth every u/2 strictly between 4.2u and
+    5.2u; reports at 4u and 7u, a checkpoint at 6u, the PLY at 7u. The
+    learning-rate decay (position_lr_max_steps, 40,000 of the recipe's
+    60,000 iterations) is scaled with it, as tools/quality_proxy.py scales
+    it: at the recipe's 40,000 the deform MLP enters stage 3 with its rate
+    decayed 500-fold, and a fresh Adam at the undecayed rate throws the
+    Gaussians out of view within 100 iterations."""
+    t, o = cfg.train, cfg.opt
+    o.iterations = 7 * u
+    o.position_lr_max_steps = 7 * u * 40_000 // 60_000
+    t.jointly_iteration = u
+    o.densify_from_iter = o.densification_interval = u
+    o.densify_until_iter = 4 * u + 1    # the events at 2u, 3u and 4u
+    o.opacity_reset_interval = 3 * u
+    t.second_stage_iteration, t.third_stage_iteration = 4 * u, 11 * u // 2
+    t.adaptive_from_iter, t.adaptive_end_iter = u // 5, 6 * u // 5
+    t.adaptive_interval = u // 2
+    t.test_iterations, t.checkpoint_iterations = (4 * u, 7 * u), (6 * u,)
+    t.save_iterations = (7 * u,)
+    cfg.model_path = model_path
+
+
+def trainer_phases(dev, seed: int, rehearse: bool):
+    """Phase 'Trainer': the port's training loop at the dnerf preset's full
+    width on a synthetic dynamic scene, under GPT_BLEND_SMT=4, through
+    every stage and host event of a compressed schedule (trainer_schedule);
+    then a second Trainer resumed from the checkpoint under the classic
+    blend, held to the first run's final parameters. Returns the kernel
+    launch counts of the run."""
+    import copy
+    import shutil
+    import tempfile
+
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.data.scene import (
+        Scene, synthetic_scene_info,
+    )
+    from gaussianprediction_tpu_torch.train import loop as L
+    from gaussianprediction_tpu_torch.train import optimizer as O
+
+    u = 20 if rehearse else 100
+    size, n_pts = (64, 300) if rehearse else (800, 100_000)
+    cfg = get_preset("dnerf")
+    if rehearse:
+        cfg.model.max_gaussian_size = cfg.model.capacity = 4_096
+    tmp = tempfile.mkdtemp(prefix="gpt_trainer_")
+    trainer_schedule(cfg, u, tmp)
+    cfg0 = copy.deepcopy(cfg)
+    try:
+        with Phase("Trainer: synthetic dynamic scene"):
+            info = synthetic_scene_info(n_points=n_pts, n_cams=20, n_test=3,
+                                        width=size, height=size,
+                                        dynamic=True, seed=seed, device=dev)
+            sync(dev)
+            log(f"scene: {n_pts} ground-truth Gaussians, "
+                f"{len(info.train_cameras)} train and "
+                f"{len(info.test_cameras)} test views at {size}x{size}")
+        with Phase(f"Trainer: {7 * u} iterations under GPT_BLEND_SMT=4"), \
+                variant_env(SMT_ENV):
+            res = run_trainer(cfg, info, dev, seed, u, rehearse)
+        with Phase("Trainer: resumed from the checkpoint under the classic "
+                   "blend"):
+            tr = res["trainer"]
+            cfg2 = copy.deepcopy(cfg0)
+            cfg2.model_path = ""
+            cfg2.train.test_iterations = ()
+            scene2 = Scene(info, seed=seed)
+            for _ in range(6 * u):      # the cameras the first run drew
+                scene2.next_train_camera()
+            tr2 = L.Trainer(cfg2, scene2, seed=seed, device=dev, quiet=True)
+            tr2.load_checkpoint(os.path.join(tmp, f"chkpnt{6 * u}.npz"))
+            mult2 = float(cfg2.model.capacity_multiplier)
+            tr2.run()
+            sync(dev)
+            a = O.tree_leaves(tr.state.params)
+            b = O.tree_leaves(tr2.state.params)
+            same = all(bits_equal(x, y) for x, y in zip(a, b)) and \
+                torch.equal(tr.state.alive, tr2.state.alive) and \
+                torch.equal(tr.state.kpt_alive, tr2.state.kpt_alive)
+            worst = max(float((x - y).abs().max()) /
+                        max(float(x.abs().max()), 1e-30)
+                        for x, y in zip(a, b))
+            log(f"resume: capacity multiplier held at {6 * u} "
+                f"{res['mult_at_ckpt']}, chosen by the load re-probe "
+                f"{mult2}; final params of the resumed classic run equal "
+                f"to the SMT run's bit for bit {same}; largest difference "
+                f"{worst:.3e} of a leaf's max |value|")
+            if mult2 == res["mult_at_ckpt"]:
+                if not same:
+                    raise AssertionError("the resumed run differs")
+            elif not worst <= 1e-5:
+                raise AssertionError("the resumed run differs beyond 1e-5")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res["launches"]
+
+
+def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
+    """The first Trainer run of trainer_phases, with every check of its
+    events, outputs and quality."""
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.data.scene import Scene
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.train import densify as DN
+    from gaussianprediction_tpu_torch.train import loop as L
+    from gaussianprediction_tpu_torch.utils.tb_writer import read_events
+
+    tr = L.Trainer(cfg, Scene(info, seed=seed), seed=seed, device=dev,
+                   log_every=u // 4)
+    ev = {"densify": [], "prune": [], "reset": 0, "grow": [],
+          "transition": [], "probe": []}
+    streams = []     # (n_dropped, n_total, capacity) of every stream built
+
+    def note(name, a, out):
+        if name == "build_instances_fwd":   # every stream
+            st = out if isinstance(out, IS.InstanceStream) else out[0]
+            streams.append((st.n_dropped, st.n_total, a[6]))
+        elif name == "densify_and_prune_clone_split":
+            ev["densify"].append((int(a[0].n_alive()),
+                                  int(out[0].n_alive())))
+        elif name == "prune":
+            ev["prune"].append((int(a[0].n_alive()), int(out.n_alive())))
+        elif name == "reset_opacity":
+            ev["reset"] += 1
+        elif name == "grow_keypoints_from_grads":
+            ev["grow"].append((int(a[0].n_kpts()), int(out[0].n_kpts())))
+        elif name == "stage_transition":
+            ev["transition"].append((a[3], int(out[0].n_kpts())))
+
+    orig_probe = tr._auto_capacity
+
+    def probe(reason, **k):
+        orig_probe(reason=reason, **k)
+        ev["probe"].append((reason, float(cfg.model.capacity_multiplier)))
+
+    tr._auto_capacity = probe
+    r0 = tr.training_report(0)
+    rec = []                  # (iteration, stage, start, end, loss, drops)
+    mult_at = {}
+    orig_one = tr.train_one
+    prof_it = 4 * u + 3 * u // 10   # a stage-2 iteration
+
+    def timed_one(it):
+        if dev.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        else:
+            e0 = time.perf_counter()
+        if it == prof_it:
+            box = {}
+            profile(lambda: box.update(m=orig_one(it)), dev,
+                    f"one stage-2 Trainer iteration ({it})", reps=1,
+                    top=12, warmup=False)
+            m = box["m"]
+        else:
+            m = orig_one(it)
+        if dev.type == "cuda":
+            e1.record()
+        else:
+            e1 = time.perf_counter()
+        rec.append((it, L.stage_of(cfg, it), e0, e1, m["loss"],
+                    m["n_dropped"]))
+        mult_at[it] = float(cfg.model.capacity_multiplier)
+        return m
+
+    tr.train_one = timed_one
+    kernels.reset_launch_counts()
+    with Capture([(DN, "densify_and_prune_clone_split"), (DN, "prune"),
+                  (DN, "reset_opacity"), (DN, "grow_keypoints_from_grads"),
+                  (L, "stage_transition"), (IS, "build_instances_fwd")],
+                 note):
+        hist = tr.run()
+    sync(dev)
+    launches = dict(kernels.launch_counts)
+
+    # the run's own numbers
+    def ms_of(r):
+        return r[2].elapsed_time(r[3]) if dev.type == "cuda" \
+            else (r[3] - r[2]) * 1e3
+
+    per_stage = {}
+    for r in rec:
+        if r[0] != prof_it:
+            per_stage.setdefault(r[1], []).append(ms_of(r))
+    losses = {r[0]: float(r[4]) for r in rec}
+    drops = [int(r[5]) for r in rec]
+    reports = [h["eval"] for h in hist if "eval" in h]
+    logged = [h for h in hist if "loss" in h]
+    log(f"Trainer: launches {launches}")
+    log("Trainer: ms per iteration (CUDA events around train_one), "
+        + "; ".join(f"stage {k}: median {float(np.median(v)):.3f} over "
+                    f"{len(v)}" for k, v in sorted(per_stage.items())))
+    log(f"Trainer: events: transitions {ev['transition']}, densify "
+        f"(alive before, after) {ev['densify']}, prune {ev['prune']}, "
+        f"opacity resets {ev['reset']}, keypoint growth {ev['grow']}, "
+        f"capacity probes {ev['probe']}; stage-3 Adam restarted "
+        f"{tr._did_stage3}")
+    # n_dropped counts slots past the capacity and the instances of rects
+    # capped at 1024 tiles (a Gaussian covering over 41% of an 800² view);
+    # kept = n_total - n_dropped stays below the capacity iff none is of
+    # the first kind
+    over = sum(int(n_tot - nd >= cap) for nd, n_tot, cap in streams)
+    capped = [(int(nd), int(n_tot)) for nd, n_tot, _ in streams if int(nd)]
+    worst = max((nd / n_tot for nd, n_tot in capped), default=0.0)
+    log(f"Trainer: test PSNR before the run {r0['test_psnr']:.3f}, at the "
+        f"reports {[(r['iter'], round(r['test_psnr'], 3)) for r in reports]}"
+        f"; {len(streams)} instance streams: {over} filled the capacity, "
+        f"{len(capped)} (training iterations {sum(1 for d in drops if d)}, "
+        f"logged steps {sum(1 for h in logged if h['n_dropped'])}) capped a "
+        f"rect at 1024 tiles, dropping at most {max(drops)} instances, "
+        f"{worst:.2e} of the stream")
+    s3 = [losses[i] for i in sorted(losses) if L.stage_of(cfg, i) == 3]
+    first20, last20 = float(np.mean(s3[:20])), float(np.mean(s3[-20:]))
+    log(f"Trainer: stage-3 loss, mean of the first 20 iterations {first20:.6f}"
+        f", of the last 20 {last20:.6f}")
+
+    # the checks
+    s2, s3i = cfg.train.second_stage_iteration, cfg.train.third_stage_iteration
+    fails = []
+    if tr.iteration != 7 * u or sorted(tr._steps) != [0, 1, 2, 3]:
+        fails.append("not every stage ran")
+    if [it for it, _ in ev["transition"] if it == s2 + 1] != [s2 + 1] or \
+            dict(ev["transition"]).get(s2 + 1) != cfg.model.max_points:
+        fails.append("the 1->2 transition")
+    if not tr._did_stage3 or s3i + 1 not in losses:
+        fails.append("the 2->3 transition")
+    if not any(b > a for a, b in ev["densify"]):
+        fails.append("densify")
+    if not any(b < a for a, b in ev["prune"]):
+        fails.append("prune")
+    if ev["reset"] < 1:
+        fails.append("opacity reset")
+    if not any(r == "densify" for r, _ in ev["probe"]):
+        fails.append("capacity re-probe")
+    if not int(tr.state.n_kpts()) > cfg.model.max_points:
+        fails.append("keypoint growth")
+    if over or len(streams) < len(rec):
+        fails.append("an instance stream filled its capacity")
+    if worst > 1e-3:
+        fails.append("rect capping dropped over 1e-3 of a stream")
+    path = cfg.model_path
+    (tb_file,) = os.listdir(os.path.join(path, "tb"))
+    tags = {v["tag"] for e in read_events(os.path.join(path, "tb", tb_file))
+            for v in e.get("values", [])}
+    for f in ("history.json", f"chkpnt{6 * u}.npz",
+              f"point_cloud/iteration_{7 * u}/point_cloud.ply"):
+        if not os.path.exists(os.path.join(path, f)):
+            fails.append(f"missing {f}")
+    if not {"train/psnr", "test/loss_viewpoint_psnr",
+            "scene/opacity_histogram"} <= tags:
+        fails.append(f"tensorboard tags {sorted(tags)}")
+    # training must be seen to work (on the card: the rehearsal's schedule
+    # is too short to show it, so there it is printed only)
+    quality = []
+    at4 = [r for r in reports if r["iter"] == 4 * u]
+    if not at4 or not at4[0]["test_psnr"] >= r0["test_psnr"] + 1.0:
+        quality.append("test PSNR at the stage-2 start not 1 dB above the "
+                       "initial state's")
+    if not last20 < first20:
+        quality.append("the stage-3 loss did not fall")
+    log(f"Trainer: quality checks failed: {quality}")
+    if not rehearse:
+        fails += quality
+        for k in ("stack", "expand", "interleave", "blend_fwd_smt",
+                  "blend_bwd_smt", "scatter_add_sorted"):
+            if not launches.get(k):
+                fails.append(f"{k} not launched")
+        if launches.get("blend_fwd") or launches.get("blend_bwd"):
+            fails.append("the classic blend launched under SMT")
+    if fails:
+        raise AssertionError(f"Trainer run: {fails}")
+    return dict(trainer=tr, launches=launches,
+                mult_at_ckpt=mult_at[6 * u])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1438,6 +1765,7 @@ def main() -> int:
     res.update(sres)
     launches.update({k: slaunches.get(k, 0) for k in sres})
     device_ms.update(sdevice_ms)
+    trainer_phases(dev, args.seed, args.rehearse)
 
     line = {"kernels": [
         {

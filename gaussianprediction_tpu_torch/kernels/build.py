@@ -53,6 +53,10 @@ _SIGNATURES = {
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
     "gpt_blend_bwd_mt": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    "gpt_blend_fwd_smt": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+    "gpt_blend_bwd_smt": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P, _P, _P],
     "gpt_cumsum_rows": [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P],
     "gpt_scatter_add_sorted": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                                ctypes.c_int, _P, _P, _P],

@@ -137,7 +137,7 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
 
     The random parts, motion_feature ([C, F], U(-1e-3, 1e-3)), the deform
     MLP, the hash tables and the weight MLP, are drawn from `generator` (a
-    torch.Generator on the host) unless given: tests pass the JAX
+    torch.Generator on any device) unless given: tests pass the JAX
     package's draws."""
     from gaussianprediction_tpu_torch.device import resolve_device
     from gaussianprediction_tpu_torch.ops.knn import mean_knn_sq_dist
@@ -173,19 +173,25 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
 
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    gdev = generator.device
     if motion_feature is None:
-        motion_feature = 1e-3 * (2.0 * torch.rand((C, F), generator=generator)
-                                 - 1.0)
+        motion_feature = 1e-3 * (2.0 * torch.rand(
+            (C, F), generator=generator, device=gdev) - 1.0)
     if df_mlp is None:
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                 device=gdev))
         df_mlp = init_mlp(np.random.default_rng(seed), deform_mlp_sizes(cfg))
     if hash_tables is None or weight_mlp is None:
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                 device=gdev))
         tables, wmlp = weight_model(cfg, np.random.default_rng(seed))
         hash_tables = tables if hash_tables is None else hash_tables
         weight_mlp = wmlp if weight_mlp is None else weight_mlp
-    to = lambda x: torch.as_tensor(np.array(x, np.float32),  # noqa: E731
-                                   device=dev)
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=f32)
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
+
     params = {
         "xyz": pts,
         "features_dc": features_dc,
@@ -205,3 +211,42 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
     return GaussianState(params=params, alive=alive,
                          kpt_alive=torch.zeros((Ck,), dtype=torch.bool,
                                                device=dev))
+
+
+PLY_SH_ORDER = ["x", "y", "z", "nx", "ny", "nz"]
+
+
+def save_ply(state: GaussianState, path: str):
+    """The live Gaussians (canonical) as a PLY file with the reference's
+    attribute layout (x, y, z, nx, ny, nz, f_dc_*, f_rest_* channel-major,
+    opacity, scale_*, rot_*; all float32), so third-party 3DGS viewers read
+    it; the JAX package's save_ply."""
+    from gaussianprediction_tpu_torch.utils import ply
+
+    p = state.params
+    alive = state.alive.cpu().numpy()
+
+    def host(x):
+        return x.detach().cpu().numpy()[alive]
+
+    xyz = host(p["xyz"])
+    f_dc, f_rest = host(p["features_dc"]), host(p["features_rest"])
+    n = len(xyz)
+    arrays = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+              "nx": np.zeros(n, np.float32), "ny": np.zeros(n, np.float32),
+              "nz": np.zeros(n, np.float32)}
+    order = list(PLY_SH_ORDER)
+    for prefix, f in (("f_dc", f_dc), ("f_rest", f_rest)):
+        flat = np.transpose(f, (0, 2, 1)).reshape(n, -1)
+        for i in range(flat.shape[1]):
+            arrays[f"{prefix}_{i}"] = flat[:, i]
+            order.append(f"{prefix}_{i}")
+    arrays["opacity"] = host(p["opacity"])[:, 0]
+    order.append("opacity")
+    for name, key, k in (("scale", "scaling", 3), ("rot", "rotation", 4)):
+        x = host(p[key])
+        for i in range(k):
+            arrays[f"{name}_{i}"] = x[:, i]
+            order.append(f"{name}_{i}")
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    ply.write_ply(path, arrays, order=order)

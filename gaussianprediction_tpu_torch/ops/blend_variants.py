@@ -1,11 +1,13 @@
-"""The tile blend under two other launch geometries: a flat work list of
-(tile, 256-instance block) items (GPT_BLEND_FLAT=1) and one program per
-tpb consecutive tiles streaming their union window (GPT_BLEND_MT=1), with
-their CUDA kernels' wrappers and plain versions.
+"""The tile blend under three other launch geometries: a flat work list
+of (tile, 256-instance block) items (GPT_BLEND_FLAT=1), one program per
+smt consecutive tiles walked one after another (GPT_BLEND_SMT=smt) and
+one program per tpb consecutive tiles streaming their union window
+(GPT_BLEND_MT=1), with their CUDA kernels' wrappers and plain versions.
 
-Torch twin of the FLAT and MT branches of
+Torch twin of the FLAT, SMT and MT branches of
 gaussianprediction_tpu/ops/rasterize_pallas.py (_build_worklist,
-_fwd_kernel_flat, _bwd_kernel_flat, _fwd_kernel_mt, _bwd_kernel_mt). Each
+_fwd_kernel_flat, _bwd_kernel_flat, _fwd_kernel_smt, _bwd_kernel_smt,
+_fwd_kernel_mt, _bwd_kernel_mt). Each
 pixel walks its tile's segment in order whatever the geometry, so both
 give ops/rasterize_kernels.py's classic outputs bit for bit: the plain
 versions are that module's blend_fwd_walk / blend_bwd_walk under another
@@ -104,6 +106,29 @@ def flat_schedule(inst, tile_start, tile_end):
             idx = blk + lane
             pending = has & (idx < end)
             yield idx, pending & (idx >= start), pending
+
+
+def smt_schedule(tile_start, tile_end, smt: int):
+    """The SMT walk (a schedule of rk.blend_fwd_walk): program p owns tiles
+    [p * smt, (p + 1) * smt) and walks their segments one after another,
+    each tile from its own fresh state; all programs at once. The last
+    program may own fewer than smt tiles."""
+    start = tile_start.to(torch.int64)
+    end = tile_end.to(torch.int64)
+    T = start.shape[0]
+    if T == 0:
+        return
+    seg = (end - start).clamp(min=0)
+    nprog = -(-T // smt)
+    segp = torch.nn.functional.pad(seg, (0, nprog * smt - T)).view(nprog,
+                                                                    smt)
+    # where each tile's walk begins in its program's sequence
+    first = (torch.cumsum(segp, dim=1) - segp).reshape(-1)[:T]
+    L = int(segp.sum(dim=1).max())
+    for k in range(L):
+        r = k - first
+        pending = (r < seg) & (seg > 0)
+        yield start + r, pending & (r >= 0), pending
 
 
 def mt_schedule(tile_start, tile_end, tpb: int):
@@ -208,13 +233,81 @@ def rasterize_binned_bwd_flat(inst, tile_start, tile_end, grid_x: int,
     return dinst
 
 
-# ----------------------------------------------------------- multi-tile
-
-
 def _check_tpb(tpb: int) -> None:
     if not isinstance(tpb, int) or tpb < 1:
         raise ValueError(f"tiles per program must be an int >= 1, not "
                          f"{tpb!r}")
+
+
+# ---------------------------------------------------- sequential tiles
+
+
+def rasterize_binned_smt_plain(inst, tile_start, tile_end, grid_x: int,
+                               grid_y: int, smt: int, with_tidx: bool = True,
+                               aux: Optional[dict] = None):
+    """Plain version of the SMT forward: rk.blend_fwd_walk over
+    smt_schedule; aux as rk.rasterize_binned_plain's."""
+    _check_tpb(smt)
+    return rk.blend_fwd_walk(inst, grid_x, grid_y, with_tidx,
+                             smt_schedule(tile_start, tile_end, smt), aux)
+
+
+def rasterize_binned_bwd_smt_plain(inst, tile_start, tile_end, grid_x: int,
+                                   grid_y: int, smt: int, dpix,
+                                   aux: Optional[dict] = None):
+    """Plain version of the SMT backward: rk.blend_bwd_walk over
+    smt_schedule."""
+    _check_tpb(smt)
+    return rk.blend_bwd_walk(inst, tile_start, tile_end, grid_x, grid_y,
+                             dpix, smt_schedule(tile_start, tile_end, smt),
+                             aux)
+
+
+def rasterize_binned_smt(inst, tile_start, tile_end, grid_x: int,
+                         grid_y: int, smt: int, with_tidx: bool = True):
+    """rk.rasterize_binned with one program per smt tiles walked in turn
+    (kernel #12's twin, kernels/csrc/blend_fwd_smt.cu); the same bits."""
+    rk.check_blend_args(inst, tile_start, tile_end, grid_x, grid_y)
+    _check_tpb(smt)
+    if not rk.on_card(inst, tile_start, tile_end):
+        return rasterize_binned_smt_plain(inst, tile_start, tile_end,
+                                          grid_x, grid_y, smt, with_tidx)
+    from gaussianprediction_tpu_torch.kernels import build
+
+    T = grid_x * grid_y
+    out = torch.empty((T, PIX, 8), dtype=torch.float32, device=inst.device)
+    build.launch("gpt_blend_fwd_smt", inst.data_ptr(), inst.shape[1],
+                 tile_start.data_ptr(), tile_end.data_ptr(), T, grid_x, smt,
+                 int(with_tidx), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    launch_counts["blend_fwd_smt"] += 1
+    return out
+
+
+def rasterize_binned_bwd_smt(inst, tile_start, tile_end, grid_x: int,
+                             grid_y: int, smt: int, dpix):
+    """rk.rasterize_binned_bwd with one program per smt tiles walked in
+    turn (kernel #13's twin, kernels/csrc/blend_bwd_smt.cu); the same
+    bits."""
+    rk.check_blend_args(inst, tile_start, tile_end, grid_x, grid_y)
+    _check_tpb(smt)
+    T = grid_x * grid_y
+    rk.check_dpix(dpix, T)
+    if not rk.on_card(inst, tile_start, tile_end, dpix):
+        return rasterize_binned_bwd_smt_plain(inst, tile_start, tile_end,
+                                              grid_x, grid_y, smt, dpix)
+    from gaussianprediction_tpu_torch.kernels import build
+
+    dinst = torch.zeros_like(inst)
+    build.launch("gpt_blend_bwd_smt", inst.data_ptr(), inst.shape[1],
+                 tile_start.data_ptr(), tile_end.data_ptr(), T, grid_x, smt,
+                 dpix.data_ptr(), dinst.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    launch_counts["blend_bwd_smt"] += 1
+    return dinst
+
+
+# ----------------------------------------------------------- multi-tile
 
 
 def rasterize_binned_mt_plain(inst, tile_start, tile_end, grid_x: int,

@@ -19,10 +19,10 @@ are zero: w_max, gid and the pad rows get none.
 
 The launch geometry follows the JAX package's environment variables, read
 at call time (blend_variant): GPT_BLEND_FLAT=1 blends over a flat work list
-of (tile, 256-instance block) items, GPT_BLEND_MT=1 one program per
-GPT_BLEND_TPB tiles over their union window (ops/blend_variants.py); both
-give the classic outputs bit for bit. GPT_BLEND_SMT > 1 raises until its
-kernels are ported.
+of (tile, 256-instance block) items, GPT_BLEND_SMT=n (n > 1) one program
+per n tiles walked one after another, GPT_BLEND_MT=1 one program per
+GPT_BLEND_TPB tiles over their union window (ops/blend_variants.py); each
+gives the classic outputs bit for bit.
 """
 from __future__ import annotations
 
@@ -49,8 +49,8 @@ D_R, D_G, D_B, D_Z, D_Q = range(5)
 
 
 class BlendVariant(NamedTuple):
-    kind: str                  # "classic", "flat" or "mt"
-    tpb: Optional[int] = None  # tiles per program ("mt")
+    kind: str                  # "classic", "flat", "smt" or "mt"
+    tpb: Optional[int] = None  # tiles per program ("smt", "mt")
 
 
 CLASSIC = BlendVariant("classic")
@@ -68,16 +68,15 @@ def blend_variant() -> BlendVariant:
     """The blend's launch geometry from the environment, read at each call
     as the JAX package reads it at trace time, with its precedence (FLAT
     over SMT over MT over classic): GPT_BLEND_FLAT=1 -> flat;
-    GPT_BLEND_SMT > 1 raises NotImplementedError (its kernels are not
-    ported); GPT_BLEND_MT=1 -> mt with GPT_BLEND_TPB tiles per program
-    (default 4; ValueError unless an integer >= 1); else classic."""
+    GPT_BLEND_SMT=n -> smt with n tiles per program where
+    max(1, n) > 1 (ValueError unless an integer; <= 1 is off);
+    GPT_BLEND_MT=1 -> mt with GPT_BLEND_TPB tiles per program (default 4;
+    ValueError unless an integer >= 1); else classic."""
     if os.environ.get("GPT_BLEND_FLAT", "0") == "1":
         return BlendVariant("flat")
-    smt = _env_int("GPT_BLEND_SMT", "1")
+    smt = max(1, _env_int("GPT_BLEND_SMT", "1"))
     if smt > 1:
-        raise NotImplementedError(
-            f"GPT_BLEND_SMT={smt}: the SMT blend kernels (#12/#13) are not "
-            "ported yet (ROADMAP.md, Queue 2)")
+        return BlendVariant("smt", smt)
     if os.environ.get("GPT_BLEND_MT", "0") == "1":
         tpb = _env_int("GPT_BLEND_TPB", "4")
         if tpb < 1:
@@ -234,6 +233,10 @@ def rasterize_binned(inst, tile_start, tile_end, grid_x: int, grid_y: int,
         if variant.kind == "flat":
             return bv.rasterize_binned_flat(inst, tile_start, tile_end,
                                             grid_x, grid_y, with_tidx)
+        if variant.kind == "smt":
+            return bv.rasterize_binned_smt(inst, tile_start, tile_end,
+                                           grid_x, grid_y, variant.tpb,
+                                           with_tidx)
         return bv.rasterize_binned_mt(inst, tile_start, tile_end, grid_x,
                                       grid_y, variant.tpb, with_tidx)
     T = grid_x * grid_y
@@ -383,6 +386,10 @@ def rasterize_binned_bwd(inst, tile_start, tile_end, grid_x: int,
         if variant.kind == "flat":
             return bv.rasterize_binned_bwd_flat(inst, tile_start, tile_end,
                                                 grid_x, grid_y, dpix)
+        if variant.kind == "smt":
+            return bv.rasterize_binned_bwd_smt(inst, tile_start, tile_end,
+                                               grid_x, grid_y, variant.tpb,
+                                               dpix)
         return bv.rasterize_binned_bwd_mt(inst, tile_start, tile_end,
                                           grid_x, grid_y, variant.tpb, dpix)
     if not on_card(inst, tile_start, tile_end, dpix):

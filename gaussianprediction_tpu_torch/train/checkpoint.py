@@ -1,0 +1,68 @@
+"""Checkpoint save and restore: the whole training state in one .npz.
+
+Torch twin of gaussianprediction_tpu/train/checkpoint.py, in its layout:
+path-flattened keys "params/<name>/...", "opt/m/...", "opt/v/...",
+"opt/step", and under "meta/" the alive masks (alive, kpt_alive), the
+densification statistics and the iteration. The JAX package stores its
+PRNG key as meta/rng_key; the port stores the state of its
+torch.Generator as meta/torch_generator (uint8). A checkpoint of either
+package loads here (convert.load_jax_checkpoint reads the arrays); the
+port's own round-trips bit for bit.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from gaussianprediction_tpu_torch.convert import load_jax_checkpoint
+from gaussianprediction_tpu_torch.models.gaussians import (
+    STATS, GaussianState,
+)
+
+GENERATOR_KEY = "meta/torch_generator"
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = (tree.detach().cpu().numpy()
+                            if isinstance(tree, torch.Tensor)
+                            else np.asarray(tree))
+    return out
+
+
+def save_checkpoint(path: str, state: GaussianState, opt_state,
+                    iteration: int,
+                    generator: Optional[torch.Generator] = None):
+    """Write params, Adam state, masks, statistics, the iteration and the
+    generator's state to `path` (.npz)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    meta = {"alive": state.alive, "kpt_alive": state.kpt_alive,
+            **{k: getattr(state, k) for k in STATS},
+            "iteration": np.int64(iteration)}
+    if generator is not None:
+        meta["torch_generator"] = generator.get_state()
+    np.savez(path, **_flatten({"params": state.params, "opt": opt_state,
+                               "meta": meta}))
+
+
+def load_checkpoint(path: str, device=None
+                    ) -> Tuple[GaussianState, dict, int,
+                               Optional[torch.Tensor]]:
+    """(state, opt_state, iteration, generator state or None) from a
+    checkpoint of either package; the generator state is None for a JAX
+    checkpoint (its PRNG key has no torch counterpart)."""
+    state, opt_state, iteration = load_jax_checkpoint(path, device)
+    with np.load(path) as f:
+        gen = (torch.from_numpy(f[GENERATOR_KEY].copy())
+               if GENERATOR_KEY in f.files else None)
+    return state, opt_state, iteration, gen

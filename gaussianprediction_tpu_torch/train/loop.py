@@ -1,16 +1,40 @@
-"""The stage schedule and the stage transitions of training.
+"""The host training loop: stage schedule, densification cadence,
+checkpoints, in-training evaluation.
 
-Torch twin of the functions of gaussianprediction_tpu/train/loop.py that
-the stages need: stage_of, set_super_keypoints (the k-means keypoint
-initialization) and the transitions into stages 2 and 3 as
-Trainer._maybe_stage_transition makes them. The Trainer class itself, and
-the blend-weight distillation at the stage-2 start (distill_init_steps,
-off in every preset), wait for a later slice (ROADMAP.md).
+Torch twin of gaussianprediction_tpu/train/loop.py: stage_of,
+set_super_keypoints (the k-means keypoint initialization), the stage
+transitions as a function (stage_transition) and the Trainer. The host owns
+the rare, shape-changing or schedule-driven events; everything per
+iteration is inside the stage's step (train/step.py):
+
+  host: camera sampling, SH-degree bumps (1k cadence), stage transitions
+        (k-means keypoints at second_stage + 1, fresh Adam at both),
+        densify / prune / opacity-reset cadence, keypoint growth cadence,
+        the instance-capacity probe, checkpoint and PLY saves, logging
+  device: render + loss + backward + masked Adam + statistics
+
+The Trainer owns one torch.Generator on its device, seeded from 2024 *
+seed as the JAX Trainer seeds its PRNG key, and draws through one method
+per kind of event, in the JAX Trainer's event order: _init_state (the
+model's random parts), _step_noise (each step's xyz and time jitter),
+_densify_noise (the split's offsets) and _kmeans_start (the k-means
+seed). A subclass that overrides them replays another sequence of draws.
+
+Not ported yet, and raising NotImplementedError: gradient accumulation
+(cfg.train.batch > 1, ROADMAP.md Queue 1 item 4), several steps per call
+(steps_per_call > 1, item 1(b)), several devices (item 8), the profiler
+hook (cfg.train.profile_steps > 0), and the blend-weight distillation at
+the stage-2 start (distill_init_steps, off in every preset).
 """
 from __future__ import annotations
 
-from typing import Optional
+import json
+import math
+import os
+import time
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from gaussianprediction_tpu_torch.config import Config
@@ -72,3 +96,430 @@ def stage_transition(state: GaussianState, opt_state, cfg: Config,
     if iteration == cfg.train.third_stage_iteration + 1:
         return state, opt_mod.init_adam(state.params)
     return state, opt_state
+
+
+class Trainer:
+    """Owns the training state; `run()` trains to cfg.opt.iterations.
+
+    Single device, one step per call: `device` (None means CUDA) holds the
+    state and runs every step and event."""
+
+    def __init__(self, cfg: Config, scene, seed: Optional[int] = None,
+                 device=None, log_every: int = 100, quiet: bool = False,
+                 steps_per_call: int = 1, n_devices: int = 1):
+        from gaussianprediction_tpu_torch.device import resolve_device
+
+        if steps_per_call > 1:
+            raise NotImplementedError(
+                "steps_per_call > 1 (several steps per device call) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 1(b): graph capture)")
+        if n_devices > 1:
+            raise NotImplementedError(
+                "n_devices > 1 (the sharded step) is not ported yet "
+                "(ROADMAP.md, Queue 1 item 8)")
+        self.cfg = cfg
+        self.scene = scene
+        self.device = resolve_device(device)
+        self.log_every = log_every
+        self.quiet = quiet
+        seed = cfg.train.seed if seed is None else seed
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(2024 * seed)
+        self.state = self._init_state()
+        self.opt_state = opt_mod.init_adam(self.state.params)
+        self.iteration = 0
+        self.active_sh_degree = 0
+        self.bg = (np.ones(3, np.float32) if cfg.model.white_background
+                   else np.zeros(3, np.float32))
+        self._bg = torch.as_tensor(self.bg, device=self.device)
+        cam0 = scene.train_cameras[0]
+        self.width, self.height = cam0.width, cam0.height
+        self.extent = float(scene.cameras_extent)
+        self._steps: Dict = {}
+        self._views: Dict = {}     # camera -> (device dict, time, gt)
+        self._history = []
+        self._did_stage3 = False
+        self._last_log = 0
+        self._last_t_iter = 0
+        self._warned_dropped = False
+        self._last_cam = None
+        self.tb = None  # TensorBoard event writer, created in run()
+        if cfg.model.capacity_auto:
+            self._auto_capacity(reason="init")
+
+    # ---- random draws, one method per kind of event -----------------------
+    def _init_state(self) -> GaussianState:
+        """The model from the scene's point cloud; its random parts (motion
+        features, deform MLP, blend-weight model) from the generator."""
+        from gaussianprediction_tpu_torch.models.gaussians import (
+            create_from_pcd,
+        )
+
+        info = self.scene.info
+        return create_from_pcd(self.cfg, info.points, info.colors,
+                               generator=self.generator, device=self.device)
+
+    def _randn(self, shape):
+        return torch.randn(shape, generator=self.generator,
+                           device=self.device)
+
+    def _step_noise(self, stage: int):
+        """(xyz noise, time noise) of one step, N(0,1) before their
+        anneals: [C, 3] in stage 1, [Ck, 3] (the keypoints) in stages 2/3,
+        None in stage 0; the time noise a 0-d draw, None without
+        use_time_decay."""
+        p = self.state.params
+        noise = None
+        if stage >= 1:
+            noise = self._randn(p["xyz" if stage == 1 else "super_xyz"].shape)
+        time_noise = self._randn(()) if self.cfg.train.use_time_decay \
+            else None
+        return noise, time_noise
+
+    def _densify_noise(self):
+        """The split's N(0,1) offsets [2, C, 3], before the scale."""
+        return self._randn((2, self.state.capacity, 3))
+
+    def _kmeans_start(self):
+        """The k-means seed row, uniform in [0, C)."""
+        return torch.randint(0, self.state.capacity, (),
+                             generator=self.generator, device=self.device)
+
+    # ---- instance capacity -------------------------------------------------
+    def _probe_need(self, n_cams: int = 8) -> int:
+        """The largest slot need of the canonical Gaussians over up to
+        n_cams training cameras (one device sync per camera)."""
+        from gaussianprediction_tpu_torch.models.gaussians import (
+            opacity_act, scaling_act,
+        )
+        from gaussianprediction_tpu_torch.ops.instance_stream import (
+            probe_slot_need,
+        )
+
+        cams = self.scene.train_cameras
+        sample = cams[:: max(1, len(cams) // n_cams)][:n_cams]
+        p = self.state.params
+        with torch.no_grad():
+            scaling, opacity = scaling_act(p["scaling"]), \
+                opacity_act(p["opacity"])
+            return max(int(probe_slot_need(
+                p["xyz"], scaling, p["rotation"], opacity,
+                self._view(c)[0], self.width, self.height,
+                alive=self.state.alive)) for c in sample)
+
+    def _auto_capacity(self, reason: str, slack: float = 1.3,
+                       iteration: Optional[int] = None):
+        """Size capacity_multiplier from the probed slot need, in steps of
+        0.5 with 1.3x slack. Growing always applies; shrinking by a whole
+        step or more applies at init and load, or while footprints are
+        stable (past half an opacity-reset interval), so the collapse after
+        a reset is not taken only to grow back. The steps read the
+        multiplier at each call, so the next step uses it."""
+        need = self._probe_need()
+        cap = max(self.state.capacity, 1)
+        mult = max(2.0, math.ceil(slack * need / cap * 2.0) / 2.0)
+        cur = float(self.cfg.model.capacity_multiplier)
+        grow = mult > cur
+        ri = max(self.cfg.opt.opacity_reset_interval, 1)
+        it = self.iteration if iteration is None else iteration
+        stable = (it % ri) > ri // 2
+        shrink = mult <= cur - 1.0 and (stable or reason in ("init", "load"))
+        if reason in ("init", "load") or grow or shrink:
+            self.cfg.model.capacity_multiplier = mult
+            if not self.quiet:
+                print(f"[capacity] {reason}: probe {need} slots; multiplier "
+                      f"{cur:.2f} -> {mult:.2f}")
+
+    # ---- the steps ---------------------------------------------------------
+    def _step_fn(self, stage: int):
+        if stage not in self._steps:
+            from gaussianprediction_tpu_torch.train.step import (
+                make_train_step,
+            )
+
+            self._steps[stage] = make_train_step(
+                self.cfg, stage, self.width, self.height, self.extent,
+                self.cfg.model.sh_degree, self.scene.total_frame, self._bg)
+        return self._steps[stage]
+
+    def _view(self, cam):
+        """(camera dict, time, ground truth) on the device, made once per
+        camera."""
+        key = id(cam)
+        if key not in self._views:
+            gt = cam.load_image()
+            self._views[key] = (
+                cam.to_device_dict(self.device),
+                torch.tensor(cam.time, dtype=torch.float32,
+                             device=self.device),
+                None if gt is None else torch.tensor(
+                    np.asarray(gt, np.float32), device=self.device))
+        return self._views[key]
+
+    # ---- host events -------------------------------------------------------
+    def _maybe_stage_transition(self, iteration: int):
+        cfg = self.cfg
+        if (iteration == cfg.train.second_stage_iteration + 1
+                and int(self.state.n_kpts()) == 0):
+            self.state, self.opt_state = stage_transition(
+                self.state, self.opt_state, cfg, iteration,
+                start_idx=self._kmeans_start())
+            if not self.quiet:
+                print(f"[iter {iteration}] stage 2: keypoints initialized "
+                      f"({int(self.state.n_kpts())})")
+        if (iteration == cfg.train.third_stage_iteration + 1
+                and not self._did_stage3):
+            self._did_stage3 = True
+            self.opt_state = opt_mod.init_adam(self.state.params)
+            if not self.quiet:
+                print(f"[iter {iteration}] stage 3: joint optimization")
+
+    def _densification(self, iteration: int, stage: int):
+        """The JAX Trainer's decisions, each host read of a count made only
+        where the event's other conditions hold."""
+        from gaussianprediction_tpu_torch.train import densify as dn
+
+        cfg = self.cfg
+        o = cfg.opt
+        if iteration < o.densify_until_iter:
+            cadence = (iteration > o.densify_from_iter
+                       and iteration % o.densification_interval == 0)
+            if cadence and int(self.state.n_alive()) < \
+                    cfg.model.max_gaussian_size:
+                self.state, self.opt_state = dn.densify_and_prune_clone_split(
+                    self.state, self.opt_state, cfg, self.extent,
+                    noise=self._densify_noise())
+            if iteration % o.opacity_reset_interval == 0 or (
+                    cfg.model.white_background
+                    and iteration == o.densify_from_iter):
+                self.state, self.opt_state = dn.reset_opacity(
+                    self.state, self.opt_state)
+            if cadence:
+                size_thr = 20 if iteration > o.opacity_reset_interval \
+                    else None
+                self.state = dn.prune(self.state, cfg, self.extent, size_thr)
+                if cfg.model.capacity_auto:
+                    self._auto_capacity(reason="densify",
+                                        iteration=iteration)
+
+        # keypoint growth: from the teaching residual first, then from the
+        # gradients (the reference's in-loop order)
+        t = cfg.train
+        if stage >= 2 and (t.densify_from_grad or t.densify_from_teaching):
+            s2 = t.second_stage_iteration
+            if (t.adaptive_from_iter + s2 < iteration
+                    < t.adaptive_end_iter + s2
+                    and iteration % t.adaptive_interval == 0
+                    and int(self.state.n_kpts()) < cfg.model.kpt_capacity()):
+                max_new = max(cfg.model.adaptive_points_num, 1)
+                if t.densify_from_teaching:
+                    self.state, self.opt_state = \
+                        dn.grow_keypoints_from_teaching(
+                            self.state, self.opt_state, cfg, max_new)
+                if t.densify_from_grad:
+                    self.state, self.opt_state = dn.grow_keypoints_from_grads(
+                        self.state, self.opt_state, cfg, max_new)
+                if not self.quiet:
+                    print(f"[iter {iteration}] keypoints -> "
+                          f"{int(self.state.n_kpts())}")
+
+    def training_report(self, iteration: int) -> Dict:
+        """In-training evaluation: render the test split and 5 train views
+        at a fixed stride, log the mean L1 and PSNR to stdout, the history
+        and TensorBoard."""
+        from gaussianprediction_tpu_torch.eval.render import render_set
+        from gaussianprediction_tpu_torch.utils.image import psnr
+
+        scene = self.scene
+        n_train = len(scene.train_cameras)
+        train_sample = [scene.train_cameras[idx % n_train]
+                        for idx in range(5, 30, 5)] if n_train else []
+        report: Dict = {"iter": iteration}
+        for name, views in (("test", scene.test_cameras),
+                            ("train", train_sample)):
+            if not views:
+                continue
+            renders, gts, _ = render_set(
+                self.state, self.cfg, iteration, views, self.bg,
+                sh_degree=self.active_sh_degree)
+            l1s, psnrs = [], []
+            for r, g in zip(renders, gts):
+                l1s.append(float(np.mean(np.abs(r - g))))
+                psnrs.append(float(psnr(torch.tensor(r), torch.tensor(g))))
+            report[f"{name}_l1"] = float(np.mean(l1s))
+            report[f"{name}_psnr"] = float(np.mean(psnrs))
+            if not self.quiet:
+                print(f"[ITER {iteration}] eval {name}: "
+                      f"L1 {report[f'{name}_l1']:.5f} "
+                      f"PSNR {report[f'{name}_psnr']:.2f}")
+            if self.tb is not None:
+                self.tb.add_scalar(f"{name}/loss_viewpoint_l1",
+                                   report[f"{name}_l1"], iteration)
+                self.tb.add_scalar(f"{name}/loss_viewpoint_psnr",
+                                   report[f"{name}_psnr"], iteration)
+                if renders:
+                    self.tb.add_image(f"{name}/render",
+                                      np.clip(renders[0], 0, 1), iteration)
+        if self.tb is not None:
+            alive = self.state.alive.cpu().numpy()
+            opac = torch.sigmoid(self.state.params["opacity"]).reshape(-1)
+            self.tb.add_histogram("scene/opacity_histogram",
+                                  opac.cpu().numpy()[alive], iteration)
+            self.tb.add_scalar("total_points", float(alive.sum()), iteration)
+            self.tb.flush()
+        self._history.append({"eval": report})
+        return report
+
+    # ---- main loop ---------------------------------------------------------
+    def train_one(self, iteration: int) -> Dict:
+        cfg = self.cfg
+        if iteration % 1000 == 0 and \
+                self.active_sh_degree < cfg.model.sh_degree:
+            self.active_sh_degree += 1
+        self._maybe_stage_transition(iteration)
+        stage = stage_of(cfg, iteration)
+        cam = self.scene.next_train_camera()
+        cam_d, t, gt = self._view(cam)
+        noise, time_noise = self._step_noise(stage)
+        self.state, self.opt_state, metrics = self._step_fn(stage)(
+            self.state, self.opt_state, cam_d, gt, t, iteration,
+            active_deg=self.active_sh_degree, noise=noise,
+            time_noise=time_noise)
+        metrics.pop("grads", None)
+        self._last_cam = cam
+        self._densification(iteration, stage)
+        return metrics
+
+    def run(self, iterations: Optional[int] = None,
+            model_path: Optional[str] = None):
+        cfg = self.cfg
+        if cfg.train.batch > 1:
+            raise NotImplementedError(
+                "cfg.train.batch > 1 (gradient accumulation, train_batch) "
+                "is not ported yet (ROADMAP.md, Queue 1 item 4)")
+        if cfg.train.profile_steps > 0:
+            raise NotImplementedError(
+                "cfg.train.profile_steps > 0 (the profiler hook) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 1)")
+        iterations = iterations or cfg.opt.iterations
+        model_path = model_path or cfg.model_path
+        if model_path and self.tb is None:
+            from gaussianprediction_tpu_torch.utils.tb_writer import (
+                SummaryWriter,
+            )
+
+            self.tb = SummaryWriter(os.path.join(model_path, "tb"))
+        t0 = time.time()
+        t_last = t0
+        iteration = self.iteration
+        while iteration < iterations:
+            iteration += 1
+            metrics = self.train_one(iteration)
+            self.iteration = iteration
+            if iteration - self._last_log >= self.log_every:
+                self._last_log = iteration
+                t_last = self._log(iteration, iterations, metrics, t0, t_last)
+            if iteration in cfg.train.test_iterations:
+                self.training_report(iteration)
+            if model_path and iteration % 5000 == 0:
+                self._save_train_images(model_path, iteration)
+            if model_path:
+                if iteration in cfg.train.save_iterations:
+                    from gaussianprediction_tpu_torch.models.gaussians import (
+                        save_ply,
+                    )
+
+                    save_ply(self.state, os.path.join(
+                        model_path, f"point_cloud/iteration_{iteration}",
+                        "point_cloud.ply"))
+                if iteration in cfg.train.checkpoint_iterations:
+                    self.save_checkpoint(os.path.join(
+                        model_path, f"chkpnt{iteration}.npz"))
+        if model_path:
+            os.makedirs(model_path, exist_ok=True)
+            with open(os.path.join(model_path, "history.json"), "w") as f:
+                json.dump(self._history, f)
+        if self.tb is not None:
+            self.tb.flush()
+        return self._history
+
+    def _log(self, iteration: int, iterations: int, metrics, t0: float,
+             t_last: float) -> float:
+        """One history entry (and TensorBoard scalars) at the log cadence;
+        the only host reads of the step's metrics. Returns the time."""
+        loss = float(metrics["loss"])
+        p = float(metrics["psnr"])
+        nd = int(metrics.get("n_dropped", 0))
+        if nd > 0 and not self._warned_dropped:
+            self._warned_dropped = True
+            print(f"WARNING [iter {iteration}]: instance buffer overflow — "
+                  f"{nd} tile instances dropped; rendered images and "
+                  f"gradients are biased. Raise "
+                  f"cfg.model.capacity_multiplier.")
+        now = time.time()
+        iter_ms = (now - t_last) * 1000.0 / max(
+            iteration - self._last_t_iter, 1)
+        self._last_t_iter = iteration
+        entry = {"iter": iteration, "loss": loss, "psnr": p,
+                 "n_gaussians": int(self.state.n_alive()),
+                 "n_kpts": int(self.state.n_kpts()),
+                 "n_dropped": nd, "elapsed": now - t0}
+        self._history.append(entry)
+        if self.tb is not None:
+            self.tb.add_scalar("train_loss_patches/total_loss", loss,
+                               iteration)
+            self.tb.add_scalar("train/psnr", p, iteration)
+            self.tb.add_scalar("iter_time", iter_ms, iteration)
+            self.tb.add_scalar("total_points", entry["n_gaussians"],
+                               iteration)
+        if not self.quiet:
+            print(f"[{iteration}/{iterations}] loss {loss:.5f} psnr {p:.2f} "
+                  f"n={entry['n_gaussians']}")
+        return now
+
+    def _save_train_images(self, model_path: str, iteration: int):
+        """Render the last training camera at the current parameters (at
+        the max SH degree: inactive coefficients are still zero) into
+        <model_path>/train_imgs/ beside its ground truth. The noise of the
+        render comes from a generator of its own, seeded 0."""
+        cam = self._last_cam
+        if cam is None:
+            return
+        from gaussianprediction_tpu_torch.eval.render import save_image
+        from gaussianprediction_tpu_torch.train.step import render_at_time
+
+        cam_d, t, gt = self._view(cam)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        with torch.no_grad():
+            pkg, _ = render_at_time(
+                self.state.params, self.cfg, self.state, cam_d, t, iteration,
+                gen, stage_of(self.cfg, iteration), self.width, self.height,
+                self._bg, self.cfg.model.sh_degree)
+        d = os.path.join(model_path, "train_imgs")
+        save_image(os.path.join(d, f"render_{iteration:05d}.png"),
+                   torch.clamp(pkg["render"], 0.0, 1.0).cpu().numpy())
+        if gt is not None:
+            save_image(os.path.join(d, f"gt_{iteration:05d}.png"),
+                       gt.cpu().numpy())
+
+    def save_checkpoint(self, path: str):
+        from gaussianprediction_tpu_torch.train import checkpoint as ckpt
+
+        ckpt.save_checkpoint(path, self.state, self.opt_state,
+                             self.iteration, self.generator)
+
+    def load_checkpoint(self, path: str):
+        """Restore a checkpoint of either package; the generator's state
+        too where the checkpoint has it (the port's own)."""
+        from gaussianprediction_tpu_torch.train import checkpoint as ckpt
+
+        self.state, self.opt_state, self.iteration, gen = \
+            ckpt.load_checkpoint(path, self.device)
+        if gen is not None:
+            self.generator.set_state(gen)
+        # resume the SH warm-up where the run left off (one degree per 1k)
+        self.active_sh_degree = min(self.cfg.model.sh_degree,
+                                    self.iteration // 1000)
+        if self.cfg.model.capacity_auto:
+            self._auto_capacity(reason="load")

@@ -12,8 +12,9 @@ growth window, and the teacher residual under densify_from_teaching);
 masked per-group Adam.
 
 Random draws come from a torch.Generator, or are passed pre-drawn (the
-parity tests hand both packages the same N(0,1) draws). The batched steps
-and the Trainer loop wait for later slices (ROADMAP.md).
+parity tests hand both packages the same N(0,1) draws; the Trainer,
+train/loop.py, passes its own). The batched steps wait for a later slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ blend and with the JAX package's same-variant paths.
   6.3e-7 in the render and 1.1e-5 relative in the gradients (its bf16-split
   MXU dots re-associate over another chunk partition).
 - The variables' precedence (FLAT over SMT over MT), the SMT variant
-  raising until it is ported, and a bad GPT_BLEND_TPB raising.
+  selected by GPT_BLEND_SMT > 1 (its own tests are in
+  tests/test_torch_blend_smt.py), and a bad GPT_BLEND_TPB raising.
 """
 import jax
 import jax.numpy as jnp
@@ -233,8 +234,8 @@ def test_render_and_gradients_match_jax_variant(env, monkeypatch):
     ({"GPT_BLEND_MT": "1"}, ("mt", 4)),
     ({"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "3"}, ("mt", 3)),
     ({"GPT_BLEND_MT": "0", "GPT_BLEND_TPB": "0"}, ("classic", None)),
-    ({"GPT_BLEND_SMT": "4", "GPT_BLEND_MT": "1"}, NotImplementedError),
-    ({"GPT_BLEND_SMT": "2"}, NotImplementedError),
+    ({"GPT_BLEND_SMT": "4", "GPT_BLEND_MT": "1"}, ("smt", 4)),
+    ({"GPT_BLEND_SMT": "2"}, ("smt", 2)),
     ({"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "0"}, ValueError),
     ({"GPT_BLEND_MT": "1", "GPT_BLEND_TPB": "two"}, ValueError),
     ({"GPT_BLEND_SMT": "x"}, ValueError),
@@ -251,12 +252,15 @@ def test_variant_selection(env, want, monkeypatch):
 
 
 def test_smt_raises_and_backward_keeps_forward_variant(monkeypatch):
+    """GPT_BLEND_SMT > 1 once raised; it now selects the SMT blend, which
+    gives the classic bits. The backward keeps the forward's variant."""
     counts = [300, 0, 41, 600]
     inst, ts, te = crafted_stream(counts, 2, 2)
     args = (t(inst), t(ts), t(te), 2, 2)
     monkeypatch.setenv("GPT_BLEND_SMT", "4")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        TR.rasterize_binned(*args)
+    np.testing.assert_array_equal(
+        _bits(TR.rasterize_binned(*args)),
+        _bits(TR.rasterize_binned(*args, variant=TR.CLASSIC)))
     monkeypatch.delenv("GPT_BLEND_SMT")
     monkeypatch.setenv("GPT_BLEND_MT", "1")
     x = args[0].clone().requires_grad_(True)

@@ -18,13 +18,16 @@ roundoff bound; on the card the plain version's index_add_ sums with
 atomics in no fixed order) and to the serial sum on the CPU bit for bit
 (the kernel sums each run in stream order, as that loop does), with two
 launches bit-identical; a stage-2 step run twice from one state is
-bit-identical. The flat work-list and multi-tile blend kernels
-(GPT_BLEND_FLAT, GPT_BLEND_MT) are held to the classic kernels bit for bit
+bit-identical. The flat work-list, multi-tile and sequential-tile blend
+kernels (GPT_BLEND_FLAT, GPT_BLEND_MT, GPT_BLEND_SMT at 2, 4 and 7) are
+held to the classic kernels bit for bit
 (every bit of the output, forward and backward, two launches identical)
 and to their plain versions at the classic kernels' tolerances, on a
 random stream, a skewed one (one tile's segment of 100,003 instances) and
-one with empty tiles, the last among them. Whether a card is present is
-decided inside the
+one with empty tiles, the last among them. The Trainer runs 30
+iterations of the `test` preset on the card across the 0 -> 1 transition,
+and its checkpoint loads into a second Trainer bit for bit. Whether a card
+is present is decided inside the
 `cuda_device` fixture; without one every test here skips.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -201,7 +204,8 @@ def _variant_stream(case, dev):
 
 VARIANTS = [TR.BlendVariant("flat"), TR.BlendVariant("mt", 1),
             TR.BlendVariant("mt", 3), TR.BlendVariant("mt", 4),
-            TR.BlendVariant("mt", 8)]
+            TR.BlendVariant("mt", 8), TR.BlendVariant("smt", 2),
+            TR.BlendVariant("smt", 4), TR.BlendVariant("smt", 7)]
 
 
 def _bits(x):
@@ -233,8 +237,8 @@ def test_blend_variant_kernels_equal_classic(cuda_device, case):
 
 
 @pytest.mark.parametrize("case", ["random", "skewed", "empty"])
-@pytest.mark.parametrize("variant", [VARIANTS[0], VARIANTS[3]],
-                         ids=["flat", "mt4"])
+@pytest.mark.parametrize("variant", [VARIANTS[i] for i in (0, 3, 5, 6, 7)],
+                         ids=["flat", "mt4", "smt2", "smt4", "smt7"])
 def test_blend_variant_kernels_equal_plain(cuda_device, case, variant):
     """At the classic kernels' tolerances (test_blend_kernel_equals_plain,
     test_blend_bwd_kernel_equals_plain)."""
@@ -249,6 +253,11 @@ def test_blend_variant_kernels_equal_plain(cuda_device, case, variant):
     if variant.kind == "flat":
         ref = TBV.rasterize_binned_flat_plain(*pargs, True, aux=aux)
         dref = TBV.rasterize_binned_bwd_flat_plain(*pargs, dpix.to(pdev))
+    elif variant.kind == "smt":
+        ref = TBV.rasterize_binned_smt_plain(*pargs, variant.tpb, True,
+                                             aux=aux)
+        dref = TBV.rasterize_binned_bwd_smt_plain(*pargs, variant.tpb,
+                                                  dpix.to(pdev))
     else:
         ref = TBV.rasterize_binned_mt_plain(*pargs, variant.tpb, True,
                                             aux=aux)
@@ -280,6 +289,10 @@ def test_blend_variant_wrappers_reject_mixed_devices(cuda_device):
         TBV.rasterize_binned_mt(inst, ts, ts, 1, 1, 4)
     with pytest.raises(ValueError):
         TBV.rasterize_binned_bwd_mt(inst, ts, ts, 1, 1, 4, dpix)
+    with pytest.raises(ValueError):
+        TBV.rasterize_binned_smt(inst, ts, ts, 1, 1, 4)
+    with pytest.raises(ValueError):
+        TBV.rasterize_binned_bwd_smt(inst, ts, ts, 1, 1, 4, dpix)
 
 
 def test_scan_kernels_equal_cumsum(cuda_device):
@@ -493,3 +506,47 @@ def test_train_step_on_card_matches_cpu(cuda_device):
             assert float((pa.cpu() - pb).abs().max()) <= 2e-3 * lr, key
     assert torch.equal(sg.denom.cpu(), sc.denom)
     assert torch.equal(sg.max_radii2D.cpu(), sc.max_radii2D)
+
+
+def test_trainer_on_card_crosses_stage_1_and_round_trips(cuda_device,
+                                                         tmp_path):
+    """30 iterations of the Trainer on the `test` preset at 64x64 on the
+    card (stage 0 -> 1 at 10), through the kernels; then its checkpoint
+    loaded by a second Trainer bit for bit, the generator's state too."""
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.data.scene import (
+        Scene, synthetic_scene_info,
+    )
+    from gaussianprediction_tpu_torch.train import checkpoint as ckpt
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.loop import Trainer
+
+    cfg = get_preset("test")
+    info = synthetic_scene_info(n_points=200, n_cams=6, n_test=1, width=64,
+                                height=64, dynamic=True, device=cuda_device)
+    tr = Trainer(cfg, Scene(info), device=cuda_device, quiet=True,
+                 log_every=5)
+    before = dict(launch_counts)
+    hist = tr.run(iterations=30)
+    torch.cuda.synchronize()
+    for k in ("blend_fwd", "blend_bwd", "stack", "expand", "interleave"):
+        assert launch_counts[k] > before.get(k, 0), k
+    logged = [h for h in hist if "loss" in h]
+    assert len(logged) == 6 and all(h["n_dropped"] == 0 for h in logged)
+    assert all(np.isfinite(h["loss"]) for h in logged)
+    assert sorted(tr._steps) == [0, 1]
+    path = str(tmp_path / "chkpnt30.npz")
+    tr.save_checkpoint(path)
+    tr2 = Trainer(get_preset("test"), Scene(info), seed=5,
+                  device=cuda_device, quiet=True)
+    tr2.load_checkpoint(path)
+    assert tr2.iteration == 30
+    assert torch.equal(tr.generator.get_state(), tr2.generator.get_state())
+    for a, b in zip(O.tree_leaves(tr.state.params) + O.tree_leaves(
+            tr.opt_state), O.tree_leaves(tr2.state.params) + O.tree_leaves(
+            tr2.opt_state)):
+        assert a.device.type == b.device.type == "cuda"
+        assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                           _bits(b) if b.is_floating_point() else b)
+    for k in ("alive", "kpt_alive") + ckpt.STATS:
+        assert torch.equal(getattr(tr.state, k), getattr(tr2.state, k)), k
