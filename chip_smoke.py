@@ -15,7 +15,9 @@ the run with a non-zero exit and no result line):
      inputs the first view's render hands it, beside its plain PyTorch
      version: stack, expand and interleave must be equal, the blend within
      2e-5 on rgb and T, 2e-4 on depth, tidx equal where the top weight
-     beats the runner-up by more than 1e-6 relative;
+     beats the runner-up by more than 1e-6 relative; the library calls of
+     stack and interleave (torch.stack) timed with events and, in a
+     torch.profiler window, on the device;
   5. render a small scene against the torch oracle
      (ops/rasterize_reference.py) through the kernels;
   6. render_set over 5 orbit views at 800x800 with the launch counts set
@@ -63,9 +65,10 @@ the run with a non-zero exit and no result line):
      every value finite;
  14. the first stage-2 step with its scatter_add_sorted inputs captured
      (M = 26,214,400 contributions into 6,101,902 slots at this width):
-     the kernel within 64 * 2^-24 * Σ|contributions| of each slot of its
-     plain version, two launches bit-identical, and compared bit for bit
-     with the serial sum on the CPU; index_add_ timed as the library call;
+     the kernel equal bit for bit to its plain version on the CPU (the
+     kernel's fixed order), within 64 * 2^-24 * Σ|contributions| of
+     index_add_ in each slot, two launches bit-identical, empty slots 0;
+     the kernel and index_add_ timed with events and in a profiler window;
  15. 8 stage-2 steps with the counts set to 0 just before: finite loss,
      grads and params, n_dropped == 0, scatter_add_sorted and blend_bwd once
      a step, ms per step; one step run twice bit-identical; one
@@ -90,7 +93,9 @@ the run with a non-zero exit and no result line):
      and the checkpoint written; the test PSNR at 400 at least 1 dB above
      the initial state's, the stage-3 loss falling; ms per iteration per
      stage (CUDA events around train_one) and a profile of one stage-2
-     iteration;
+     iteration; the scatter_add_sorted stream of the next stage-2
+     iteration (where the dead rows make long runs in every level) held
+     and timed as in phase 14;
  19. a second Trainer loads the checkpoint at 600 and runs to 700 under the
      classic blend: its final parameters equal the first run's bit for bit
      (within 1e-5 of each leaf's largest magnitude when its load re-probe
@@ -163,7 +168,8 @@ SOURCES = {
         "gaussianprediction_tpu_torch/kernels/csrc/blend_bwd_smt.cu",
 }
 # the __global__ functions of each kernel, as torch.profiler names them
-# (the scan is three: block sums, their scan, the block scans)
+# (the scan is three: block sums, their scan, the block scans; the table
+# gradient two: the tiles, the runs that cross tiles)
 SCAN_FUNCS = ("block_sums_kernel", "scan_sums_kernel", "scan_rows_kernel")
 DEVICE_NAMES = {
     "stack": ("stack_rows_kernel",),
@@ -173,7 +179,7 @@ DEVICE_NAMES = {
     "blend_bwd": ("blend_bwd_kernel",),
     "cumsum_channels": SCAN_FUNCS,
     "cumsum_rows": SCAN_FUNCS,
-    "scatter_add_sorted": ("mark_heads_kernel", "reduce_runs_kernel"),
+    "scatter_add_sorted": ("scatter_tiles_kernel", "scatter_carries_kernel"),
     "blend_fwd_flat": ("blend_fwd_flat_kernel",),
     "blend_bwd_flat": ("blend_bwd_flat_kernel",),
     "blend_fwd_mt": ("blend_fwd_mt_kernel",),
@@ -247,6 +253,30 @@ def time_ms(fn, dev, reps: int) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_ms_of(fn, dev, reps: int):
+    """Mean device ms per call of fn(): every device-side event of a
+    torch.profiler window over `reps` calls after a warm-up, summed (the
+    kernels, fills and memsets one call launches). None off the card."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    sync(dev)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync(dev)
+    us = 0.0
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else getattr(e, "self_cuda_time_total",
+                                                  0.0)
+    return us / (reps * 1e3)
 
 
 def make_params(cfg, n: int, seed: int):
@@ -330,12 +360,13 @@ def check_kernels(args_by_name, dev, reps: int):
     if not torch.equal(out, ref):
         raise AssertionError("stack_rows kernel != plain")
     zeros = [torch.zeros_like(chans[0]) for _ in range(nch - len(chans))]
+    lib = lambda: torch.stack(list(chans) + zeros)  # noqa: E731
     res["stack"] = dict(
         max_abs_err=float((out - ref).abs().max()),
         ms=time_ms(lambda: E.stack_rows(chans, nch=nch), dev, reps),
         plain_ms=time_ms(lambda: E.stack_rows_plain(chans, nch), dev, reps),
-        library_ms=time_ms(lambda: torch.stack(list(chans) + zeros), dev,
-                           reps),
+        library_ms=time_ms(lib, dev, reps),
+        library_device_ms=device_ms_of(lib, dev, reps),
         bytes=(len(chans) + nch) * n * 4, ops=0,
     )
 
@@ -380,12 +411,13 @@ def check_kernels(args_by_name, dev, reps: int):
         raise AssertionError("interleave_rows kernel != plain")
     valid = (chans[10] >= 0).to(torch.float32)
     zeros = [torch.zeros_like(valid) for _ in range(4)]
+    lib = lambda: torch.stack(list(chans) + [valid] + zeros)  # noqa: E731
     res["interleave"] = dict(
         max_abs_err=float((out - ref).abs().max()),
         ms=time_ms(lambda: E.interleave_rows(chans), dev, reps),
         plain_ms=time_ms(lambda: E.interleave_rows_plain(chans), dev, reps),
-        library_ms=time_ms(lambda: torch.stack(list(chans) + [valid] + zeros),
-                           dev, reps),
+        library_ms=time_ms(lib, dev, reps),
+        library_device_ms=device_ms_of(lib, dev, reps),
         bytes=(11 + 16) * n * 4, ops=0,
     )
 
@@ -433,7 +465,8 @@ def add_bounds(res: dict) -> None:
         log(f"kernel {name}: max |err| {r['max_abs_err']:.3e}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  "
-            f"library_ms {r['library_ms']}")
+            f"library_ms {r['library_ms']}  library device ms "
+            f"{r.get('library_device_ms')}")
 
 
 def oracle_check(dev, seed: int) -> None:
@@ -1094,11 +1127,13 @@ def variant_phases(cfg, dev, rstate, iteration, views, bg, renders,
     return res, launches, device_ms
 
 
-def check_scatter_kernel(cap, dev, reps: int):
-    """scatter_add_sorted beside its plain version on the first stage-2
-    step's table-gradient stream: within 64 * 2^-24 * Σ|contributions| of
-    each slot, two launches bit-identical; also against the serial sum on
-    the CPU (the plain version's own order) bit for bit, reported."""
+def check_scatter_kernel(cap, dev, reps: int, what: str):
+    """scatter_add_sorted on a captured table-gradient stream: two launches
+    bit-identical, bit for bit its plain version on the CPU (the kernel's
+    order: runs cut into tiles, pieces in stream order, pieces in tile
+    order), within 64 * 2^-24 * Σ|contributions| of index_add_ on the card
+    in every slot, slots that receive nothing exactly 0; event ms and the
+    device ms of a profiler window of the kernel and of index_add_."""
     from gaussianprediction_tpu_torch.ops import hashgrid_kernels as HK
 
     (keys, vals, n_slots), _ = cap.args["scatter_add_sorted"]
@@ -1107,42 +1142,49 @@ def check_scatter_kernel(cap, dev, reps: int):
     b = HK.scatter_add_sorted(keys, vals, n_slots)
     sync(dev)
     if not torch.equal(a, b):
-        raise AssertionError("scatter_add_sorted: two launches differ")
+        raise AssertionError(f"scatter_add_sorted ({what}): two launches "
+                             f"differ")
     t0 = time.perf_counter()
-    ref = HK.scatter_add_sorted_plain(keys, vals, n_slots)
-    sync(dev)
-    plain_once = (time.perf_counter() - t0) * 1e3
-    absum = HK.scatter_add_sorted_plain(keys, vals.abs(), n_slots)
-    tol = 64 * EPS32 * absum
-    err = (a - ref).abs()
-    n_out = int((err > tol).sum())
-    t0 = time.perf_counter()
-    serial = HK.scatter_add_sorted_plain(keys.cpu(), vals.cpu(), n_slots)
+    ref = HK.scatter_add_sorted_plain(keys.cpu(), vals.cpu(), n_slots)
     cpu_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(a.cpu(), ref)
+    err = float((a.cpu() - ref).abs().max())
     lib = lambda: torch.zeros((F, n_slots), device=dev).index_add_(  # noqa
         1, keys, vals)
-    lib_err = float((lib() - a).abs().max())
-    empty = int((absum == 0).all(dim=0).sum())
-    log(f"scatter_add_sorted: M {M}, F {F}, slots {n_slots} ({empty} "
-        f"empty); bit-identical across 2 launches; max |err| vs plain "
-        f"{float(err.max()):.3e}, {n_out} slots beyond 64 * 2^-24 * "
-        f"sum|v|; equal to the serial CPU sum bit for bit "
-        f"{torch.equal(a.cpu(), serial)} (CPU {cpu_ms:.1f} ms); index_add_ "
-        f"max |diff| {lib_err:.3e}; plain once {plain_once:.3f} ms")
-    if n_out:
-        raise AssertionError("scatter_add_sorted disagrees with its plain "
-                             "version")
-    res = {"scatter_add_sorted": dict(
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: HK.scatter_add_sorted(keys, vals, n_slots), dev,
-                   reps),
+    absum = torch.zeros((F, n_slots), device=dev).index_add_(1, keys,
+                                                             vals.abs())
+    diff = (a - lib()).abs()
+    n_out = int((diff > 64 * EPS32 * absum).sum())
+    lib_err = float(diff.max())
+    hit = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    hit[keys.to(torch.int64)] = True
+    stray = int(a[:, ~hit].ne(0).sum())
+    runs = torch.unique_consecutive(keys, return_counts=True)[1]
+    log(f"scatter_add_sorted ({what}): M {M}, F {F}, slots {n_slots} "
+        f"({int((~hit).sum())} empty), {runs.shape[0]} runs, the longest "
+        f"{int(runs.max())}; bit-identical across 2 launches; equal to the "
+        f"CPU plain version bit for bit {same} (max |err| {err:.3e}, CPU "
+        f"{cpu_ms:.1f} ms); {n_out} slots beyond 64 * 2^-24 * sum|v| of "
+        f"index_add_ (max |diff| {lib_err:.3e}); {stray} empty slots not 0")
+    if not same or n_out or stray:
+        raise AssertionError(f"scatter_add_sorted ({what}) disagrees with "
+                             f"its plain version")
+    kern = lambda: HK.scatter_add_sorted(keys, vals, n_slots)  # noqa: E731
+    r = dict(
+        max_abs_err=err,
+        ms=time_ms(kern, dev, reps),
+        kernel_device_ms=device_ms_of(kern, dev, reps),
         plain_ms=time_ms(lambda: HK.scatter_add_sorted_plain(
             keys, vals, n_slots), dev, reps),
         library_ms=time_ms(lib, dev, reps),
+        library_device_ms=device_ms_of(lib, dev, reps),
         # keys and values read once, the table written once; F adds each
         bytes=M * (4 + 4 * F) + F * n_slots * 4, ops=M * F,
-    )}
+    )
+    res = {"scatter_add_sorted": r}
     add_bounds(res)
+    log(f"scatter_add_sorted ({what}): device ms of a profiler window "
+        f"{r['kernel_device_ms']} (index_add_ {r['library_device_ms']})")
     return res
 
 
@@ -1277,7 +1319,8 @@ def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
         sync(dev)
         log(f"first stage-2 step: loss {float(m['loss']):.6f}")
         with torch.no_grad():
-            res = check_scatter_kernel(cap, dev, reps)
+            res = check_scatter_kernel(cap, dev, reps,
+                                       "the first stage-2 step")
 
     with Phase(f"training ({nsteps} stage-2 steps, keypoint growth)"):
         kernels.reset_launch_counts()
@@ -1370,7 +1413,7 @@ def trainer_schedule(cfg, u: int, model_path: str):
     cfg.model_path = model_path
 
 
-def trainer_phases(dev, seed: int, rehearse: bool):
+def trainer_phases(dev, seed: int, rehearse: bool, reps: int):
     """Phase 'Trainer': the port's training loop at the dnerf preset's full
     width on a synthetic dynamic scene, under GPT_BLEND_SMT=4, through
     every stage and host event of a compressed schedule (trainer_schedule);
@@ -1408,6 +1451,10 @@ def trainer_phases(dev, seed: int, rehearse: bool):
         with Phase(f"Trainer: {7 * u} iterations under GPT_BLEND_SMT=4"), \
                 variant_env(SMT_ENV):
             res = run_trainer(cfg, info, dev, seed, u, rehearse)
+        with Phase("Trainer: scatter_add_sorted on a stage-2 iteration's "
+                   "stream"), torch.no_grad():
+            check_scatter_kernel(res.pop("scatter"), dev, reps,
+                                 "a stage-2 Trainer iteration")
         with Phase("Trainer: resumed from the checkpoint under the classic "
                    "blend"):
             tr = res["trainer"]
@@ -1450,6 +1497,7 @@ def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
     events, outputs and quality."""
     from gaussianprediction_tpu_torch import kernels
     from gaussianprediction_tpu_torch.data.scene import Scene
+    from gaussianprediction_tpu_torch.ops import hashgrid_kernels as HK
     from gaussianprediction_tpu_torch.ops import instance_stream as IS
     from gaussianprediction_tpu_torch.train import densify as DN
     from gaussianprediction_tpu_torch.train import loop as L
@@ -1489,6 +1537,8 @@ def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
     mult_at = {}
     orig_one = tr.train_one
     prof_it = 4 * u + 3 * u // 10   # a stage-2 iteration
+    cap_it = prof_it + 1            # one whose table-gradient stream is kept
+    scatter = {}
 
     def timed_one(it):
         if dev.type == "cuda":
@@ -1503,6 +1553,10 @@ def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
                     f"one stage-2 Trainer iteration ({it})", reps=1,
                     top=12, warmup=False)
             m = box["m"]
+        elif it == cap_it:
+            with Capture([(HK, "scatter_add_sorted")]) as c:
+                m = orig_one(it)
+            scatter["cap"] = c
         else:
             m = orig_one(it)
         if dev.type == "cuda":
@@ -1621,7 +1675,7 @@ def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
     if fails:
         raise AssertionError(f"Trainer run: {fails}")
     return dict(trainer=tr, launches=launches,
-                mult_at_ckpt=mult_at[6 * u])
+                mult_at_ckpt=mult_at[6 * u], scatter=scatter["cap"])
 
 
 def main() -> int:
@@ -1765,7 +1819,7 @@ def main() -> int:
     res.update(sres)
     launches.update({k: slaunches.get(k, 0) for k in sres})
     device_ms.update(sdevice_ms)
-    trainer_phases(dev, args.seed, args.rehearse)
+    trainer_phases(dev, args.seed, args.rehearse, reps)
 
     line = {"kernels": [
         {
@@ -1775,6 +1829,7 @@ def main() -> int:
             "device_ms": device_ms[name],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_device_ms": r.get("library_device_ms"),
         }
         for name, r in res.items()
     ]}

@@ -4,9 +4,11 @@ wrapper and its plain version.
 Torch twin of gaussianprediction_tpu/ops/hashgrid_pallas.py
 (scatter_add_sorted), the table gradient of the hash-grid encoder. The
 CUDA kernel (kernels/csrc/scatter_add_sorted.cu) is a segmented reduction
-over the sorted stream: each slot is written once, with no atomics and a
-fixed order (each run summed in stream order), so two launches are
-bit-identical. Launches count under "scatter_add_sorted" in
+cut by stream position: tiles of TILE positions, each run's piece in a
+tile summed from 0.0 in stream order, a run's pieces added from 0.0 in tile
+order. Each slot's sum is written once, with no atomics, so two launches
+are bit-identical, and the plain version takes the same order (on the CPU
+bit for bit). Launches count under "scatter_add_sorted" in
 kernels.launch_counts.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from gaussianprediction_tpu_torch.kernels import launch_counts
 
 MAX_F = 8
+TILE = 1024   # stream positions a tile: kTile in scatter_add_sorted.cu
 
 
 def _check(keys_sorted, vals_sorted, n_slots: int) -> bool:
@@ -39,13 +42,25 @@ def _check(keys_sorted, vals_sorted, n_slots: int) -> bool:
 
 
 def scatter_add_sorted_plain(keys_sorted, vals_sorted, n_slots: int):
-    """out[f, s] = Σ vals[f, i] over keys[i] == s: index_add_ row by row,
-    on the CPU a serial sum in stream order (each row as a 1-d index_add_,
-    which takes a direct loop where the 2-d form does one slice op per
-    contribution; the sums are the same)."""
-    out = vals_sorted.new_zeros((vals_sorted.shape[0], n_slots))
-    for f in range(vals_sorted.shape[0]):
-        out[f].index_add_(0, keys_sorted, vals_sorted[f])
+    """out[f, s] = Σ vals[f, i] over keys[i] == s, in the kernel's order:
+    each run of one key cut at multiples of TILE into pieces, each piece
+    summed from 0.0 in stream order, the pieces' sums added from 0.0 in
+    tile order. Two 1-d index_add_ passes a row give that order on the CPU,
+    where a 1-d index_add_ is a serial loop (the 2-d form does one slice op
+    per contribution); on the card they sum with atomics."""
+    F, M = vals_sorted.shape
+    out = vals_sorted.new_zeros((F, n_slots))
+    if M == 0:
+        return out
+    pos = torch.arange(M, device=keys_sorted.device)
+    cut = pos % TILE == 0
+    cut[1:] |= keys_sorted[1:] != keys_sorted[:-1]
+    piece = torch.cumsum(cut, 0) - 1
+    piece_key = keys_sorted[cut]
+    sums = vals_sorted.new_zeros((F, piece_key.shape[0]))
+    for f in range(F):
+        sums[f].index_add_(0, piece, vals_sorted[f])
+        out[f].index_add_(0, piece_key, sums[f])
     return out
 
 
@@ -63,9 +78,10 @@ def scatter_add_sorted(keys_sorted, vals_sorted, n_slots: int):
     F, M = vals_sorted.shape
     dev = vals_sorted.device
     out = torch.empty((F, n_slots), dtype=torch.float32, device=dev)
-    starts = torch.empty((max(n_slots, 1),), dtype=torch.int32, device=dev)
+    carry = torch.empty((max(-(-M // TILE), 1), 2, F), dtype=torch.float32,
+                        device=dev)
     build.launch("gpt_scatter_add_sorted", keys_sorted.data_ptr(),
-                 vals_sorted.data_ptr(), M, F, n_slots, starts.data_ptr(),
+                 vals_sorted.data_ptr(), M, F, n_slots, carry.data_ptr(),
                  out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     launch_counts["scatter_add_sorted"] += 1
     return out

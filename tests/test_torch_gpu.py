@@ -13,12 +13,17 @@ ulp), and two launches bit-identical. The scans are held to
 64 * 2^-24 * cumsum(|x|), a bound on f32 roundoff of sums of that depth.
 One training step on the card is held to the same step on the CPU through
 the plain versions. The table-gradient kernel scatter_add_sorted is held
-per slot to 64 * 2^-24 * Σ|contributions| of its plain version (the same
-roundoff bound; on the card the plain version's index_add_ sums with
-atomics in no fixed order) and to the serial sum on the CPU bit for bit
-(the kernel sums each run in stream order, as that loop does), with two
-launches bit-identical; a stage-2 step run twice from one state is
-bit-identical. The flat work-list, multi-tile and sequential-tile blend
+to its plain version on the CPU bit for bit (both sum in the kernel's
+fixed order: each run's pieces within tiles of TILE positions in stream
+order, the pieces in tile order; the plain version's index_add_ is serial
+there), per slot to 64 * 2^-24 * Σ|contributions| of index_add_ on the
+card (the same roundoff bound; index_add_ sums with atomics in no fixed
+order), with two launches bit-identical, on streams with a run of 800k
+zeros, runs of 100k, runs of TILE - 1, TILE and TILE + 1 across tile
+boundaries, one slot taking the whole stream and fewer positions than a
+tile; a stage-2 step run twice from one state is bit-identical.
+Interleave runs at n = 1, 3, 4, 70,000 and 70,001 on rows that are 16-byte
+aligned and on rows that are not. The flat work-list, multi-tile and sequential-tile blend
 kernels (GPT_BLEND_FLAT, GPT_BLEND_MT, GPT_BLEND_SMT at 2, 4 and 7) are
 held to the classic kernels bit for bit
 (every bit of the output, forward and backward, two launches identical)
@@ -103,8 +108,14 @@ def test_expand_kernel_equals_plain(cuda_device, emit):
     assert torch.equal(out, ref)
 
 
-def test_interleave_kernel_equals_plain(cuda_device):
-    chans = [torch.randn(70_001, device=cuda_device) for _ in range(11)]
+@pytest.mark.parametrize("n", [1, 3, 4, 70_001, 70_000])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_interleave_kernel_equals_plain(cuda_device, n, offset):
+    """The 16-byte path and the scalar one (tails; rows that are views of
+    one tensor at an offset of 1 float, so no row is 16-byte aligned)."""
+    base = torch.randn(11 * n + offset, device=cuda_device)
+    base[offset + 10 * n::3] = -1.0            # some invalid gids
+    chans = [base[offset + c * n:offset + (c + 1) * n] for c in range(11)]
     before = launch_counts["interleave"]
     out = TE.interleave_rows(chans)
     torch.cuda.synchronize()
@@ -323,6 +334,8 @@ def test_scan_kernels_equal_cumsum(cuda_device):
 def _sorted_stream(case, dev):
     """(keys, vals, n_slots) of one case, sorted, on the card."""
     g = torch.Generator().manual_seed(3)
+    C = THK.TILE
+    zero_key = None
     if case == "random":
         n_slots = 1_000_003                      # not a multiple of 256
         keys = torch.randint(0, n_slots, (3_000_000,), generator=g)
@@ -330,18 +343,44 @@ def _sorted_stream(case, dev):
         n_slots = 50_001
         keys = torch.cat([torch.full((1_000_000,), 777),
                           torch.randint(0, n_slots, (200_000,), generator=g)])
-    else:  # "empty": whole ranges of slots receive nothing
+    elif case == "empty":  # whole ranges of slots receive nothing
         n_slots = 300_007
         keys = torch.cat([torch.randint(0, 1000, (100_000,), generator=g),
                           torch.randint(250_000, 260_000, (100_000,),
                                         generator=g)])
+    elif case == "dead_run":  # the Trainer's dead rows: one run of zeros
+        n_slots, zero_key = 524_288, 300_000
+        keys = torch.cat([torch.full((800_003,), zero_key),
+                          torch.randint(0, n_slots, (800_000,), generator=g)])
+    elif case == "runs_100k":
+        n_slots = 1_000
+        keys = torch.repeat_interleave(torch.arange(8) * 97 + 5, 100_000)
+    elif case == "tile_edges":  # runs of C-1, C, C+1 across boundaries
+        n_slots = 70_001
+        lens = [C // 2, C - 1, 3, C, 5, C + 1, C - 1, 1, C + 1, 2 * C]
+        keys = torch.cat(
+            [torch.full((n,), 10 + 7 * r) for r, n in enumerate(lens)]
+            + [torch.randint(200, n_slots, (5_000,), generator=g)])
+    elif case == "one_slot":
+        n_slots = 3
+        keys = torch.full((1_000_001,), 1)
+    else:  # "short": fewer positions than one tile
+        n_slots = 5_000
+        keys = torch.randint(0, n_slots, (C - 5,), generator=g)
     keys = torch.sort(keys.to(torch.int32)).values
     vals = torch.randn((4, keys.shape[0]), generator=g)
+    if zero_key is not None:
+        vals[:, keys == zero_key] = 0.0
     return keys.to(dev), vals.to(dev), n_slots
 
 
-@pytest.mark.parametrize("case", ["random", "skewed", "empty"])
+@pytest.mark.parametrize("case", [
+    "random", "skewed", "empty", "dead_run", "runs_100k", "tile_edges",
+    "one_slot", "short"])
 def test_scatter_add_sorted_kernel_equals_plain(cuda_device, case):
+    """Two launches bit-identical; bit for bit the CPU plain version (the
+    kernel's order); within 64 * 2^-24 * Σ|v| of index_add_; slots that
+    receive nothing exactly 0."""
     keys, vals, n_slots = _sorted_stream(case, cuda_device)
     before = launch_counts["scatter_add_sorted"]
     a = THK.scatter_add_sorted(keys, vals, n_slots)
@@ -349,12 +388,12 @@ def test_scatter_add_sorted_kernel_equals_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert launch_counts["scatter_add_sorted"] == before + 2
     assert torch.equal(a, b)                      # deterministic
-    ref = THK.scatter_add_sorted_plain(keys, vals, n_slots)
-    tol = 64 * 2.0 ** -24 * THK.scatter_add_sorted_plain(keys, vals.abs(),
-                                                         n_slots)
-    assert bool(((a - ref).abs() <= tol).all())
-    serial = THK.scatter_add_sorted_plain(keys.cpu(), vals.cpu(), n_slots)
-    assert torch.equal(a.cpu(), serial)
+    ref = THK.scatter_add_sorted_plain(keys.cpu(), vals.cpu(), n_slots)
+    assert torch.equal(a.cpu(), ref)
+    lib = torch.zeros_like(a).index_add_(1, keys, vals)
+    tol = 64 * 2.0 ** -24 * torch.zeros_like(a).index_add_(1, keys,
+                                                            vals.abs())
+    assert bool(((a - lib).abs() <= tol).all())
     hit = torch.zeros(n_slots, dtype=torch.bool, device=cuda_device)
     hit[keys.to(torch.int64)] = True
     assert not a[:, ~hit].any()

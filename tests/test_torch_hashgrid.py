@@ -161,6 +161,57 @@ def test_scatter_add_sorted_plain_matches_pallas():
     assert empty[8192:24_576].all()
 
 
+def _tile_order_sum(keys, vals, n_slots, tile):
+    """The documented order, in numpy float32: each run cut at multiples of
+    `tile` into pieces, each piece summed from 0.0 in stream order, the
+    pieces' sums added from 0.0 in tile order."""
+    F, M = vals.shape
+    out = np.zeros((F, n_slots), np.float32)
+    heads = np.flatnonzero(np.diff(keys, prepend=keys[0] - 1))
+    for start, end in zip(heads, np.append(heads[1:], M)):
+        total = np.zeros(F, np.float32)
+        a = start
+        while a < end:
+            b = min(end, (a // tile + 1) * tile)
+            piece = np.zeros(F, np.float32)
+            for i in range(a, b):
+                piece = piece + vals[:, i]
+            total = total + piece
+            a = b
+        out[:, keys[start]] = total
+    return out
+
+
+def test_scatter_add_sorted_plain_sums_in_tile_order():
+    """Runs of TILE - 1, TILE and TILE + 1 placed across tile boundaries, a
+    run over three tiles and short random runs: the plain version equals the
+    documented order bit for bit, and the Pallas kernel (interpret mode)
+    within the roundoff bound."""
+    C = thk.TILE
+    rng = np.random.default_rng(4)
+    n_slots = 20_000
+    lens = [C - 1, 700, C, 1, C + 1, 3 * C + 5]
+    # each run of C or more starts off a multiple of C, so it crosses one
+    keys = np.concatenate(
+        [np.sort(rng.integers(0, 300, 1000))]
+        + [np.full(n, 400 + 10 * r) for r, n in enumerate(lens)]
+        + [np.sort(rng.integers(1000, n_slots, 4000))]).astype(np.int32)
+    vals = rng.normal(size=(3, keys.shape[0])).astype(np.float32)
+    starts = 1000 + np.cumsum([0] + lens[:-1])
+    assert all(s // C != (s + n - 1) // C for s, n in zip(starts, lens)
+               if n >= C)
+    out = n(thk.scatter_add_sorted(t(keys), t(vals), n_slots))
+    np.testing.assert_array_equal(out.view(np.int32), _tile_order_sum(
+        keys, vals, n_slots, C).view(np.int32))
+    ref = n(jhp.scatter_add_sorted(jnp.asarray(keys), jnp.asarray(vals),
+                                   n_slots, interpret=True))
+    absum = np.zeros((3, n_slots), np.float64)
+    for f in range(3):
+        np.add.at(absum[f], keys, np.abs(vals[f]))
+    np.testing.assert_array_less(np.abs(out - ref),
+                                 64 * EPS32 * absum + 1e-30)
+
+
 def test_scatter_add_sorted_rejects_bad_inputs():
     keys, vals, n_slots = _stream(F=2)
     k, v = t(keys), t(vals)
