@@ -30,12 +30,16 @@ def _view_renderer(state: GaussianState, cfg: Config, iteration: int,
                    width: int, height: int, bg, sh_degree: int):
     stage = stage_of(cfg, iteration)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
+    gen = torch.Generator(device=state.device)
 
     @torch.no_grad()
     def fn(cam, t):
-        # eval iterations are past the noise anneals: no noise is drawn
+        # An iteration inside the xyz-noise anneal draws noise: from a
+        # generator re-seeded to 0 for every view, so that a view renders
+        # the same bits every time (the JAX package passes PRNGKey(0)).
+        gen.manual_seed(0)
         pkg, _ = render_at_time(
-            state.params, cfg, state, cam, t, iteration, None, stage, width,
+            state.params, cfg, state, cam, t, iteration, gen, stage, width,
             height, bg, sh_degree, need_tidx=True,
         )
         return pkg

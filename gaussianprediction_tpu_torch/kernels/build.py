@@ -144,14 +144,15 @@ def build() -> Path:
 def library():
     """The loaded kernel library (built on first call)."""
     global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+    if _lib is None:            # the lock only until the library is loaded
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 

@@ -17,10 +17,11 @@
 // one block per tile and one thread per pixel keep T, the done latch and S
 // in registers (the dependency is per pixel, so no scan is needed), and the
 // ten per-pixel products of each instance are summed over the tile's 256
-// pixels: warp shuffles (skipped by a warp none of whose pixels the
-// instance touches), then an [instances][8 warps][10] shared-memory pass
-// over sub-batches of 32 instances, and one thread per instance writes its
-// column once.
+// pixels: a reduce-scatter across each warp (12 shuffles; skipped by a warp
+// none of whose pixels the instance touches), then the eight warps' sums in
+// order from a double-buffered shared-memory array, folded by all 256
+// threads a sub-batch of 32 instances at a time, each gradient row of the
+// sub-batch's columns written once, coalesced.
 //
 // The TPU kernel read-modify-writes gradient blocks that neighbouring
 // tiles share, which is race-free only because the TPU grid runs in order.
@@ -38,8 +39,10 @@
 // Bound on the H100: by the f32 arithmetic of the (pixel, instance) pairs
 // up to each pixel's done latch, as the forward's, plus the gradient terms
 // of the contributing pairs, against 67 TFLOP/s; beside the instances read
-// (12 channels), dpix, and the 10 gradient rows written. Simple and right
-// first: two block barriers per 32 instances.
+// (12 channels), dpix, and the 10 gradient rows written. The walk is a
+// chain per pixel; what the reduction adds to it is one block barrier per
+// 32 instances, 12 shuffles per instance a warp touches, and one shared
+// store per warp and instance.
 #include "common.cuh"
 
 namespace {
@@ -53,19 +56,19 @@ blend_bwd_kernel(const float* __restrict__ inst, long long P,
                  const int* __restrict__ tile_end, int grid_x,
                  const float* __restrict__ dpix, float* __restrict__ dinst) {
   __shared__ float s[kCh][kPix];
-  __shared__ gpt::Reduce red[gpt::kBlendSub];
+  __shared__ gpt::Reduce red[2];
   const int t = blockIdx.x;
   const int lin = threadIdx.x;
   const int start = tile_start[t];
   const int end = tile_end[t];
   gpt::BwdPixel p = gpt::bwd_pixel(t, grid_x, lin, dpix);
-  // each walk ends on a barrier after its last read of s[][]
+  // each walk's last read of s[][] precedes its last barrier
   for (int base = start; base < end; base += kPix) {
     const int nb = min(kPix, end - base);
     gpt::stage_lane(s, inst, P, base, 0, nb, lin);
     __syncthreads();
-    if (gpt::bwd_walk(s, red, base, 0, nb, start, end, p, dinst, P, lin,
-                      gpt::BlockBarrier{})) {
+    if (gpt::bwd_walk(s, red, inst, base, 0, nb, start, end, p, dinst, P,
+                      lin, gpt::BlockBarrier{})) {
       break;
     }
   }

@@ -40,7 +40,7 @@ blend_bwd_flat_kernel(const float* __restrict__ inst, long long P,
                       const float* __restrict__ dpix,
                       float* __restrict__ dinst) {
   __shared__ float s[kCh][kPix];
-  __shared__ gpt::Reduce red[gpt::kBlendSub];
+  __shared__ gpt::Reduce red[2];
   const int lin = threadIdx.x;
   const int nw = nwork[0];
   const int t1 = tile_cut[blockIdx.x + 1];
@@ -49,15 +49,15 @@ blend_bwd_flat_kernel(const float* __restrict__ inst, long long P,
     const int end = tile_end[t];
     const int i1 = min(t + 1 < num_tiles ? ft[t + 1] : nw, nw);
     gpt::BwdPixel p = gpt::bwd_pixel(t, grid_x, lin, dpix);
-    // each walk ends on a barrier after its last read of s[][]
+    // each walk's last read of s[][] precedes its last barrier
     for (int i = ft[t]; i < i1; ++i) {
       const long long base = (long long)woff[i] * kPix;
       const int lo = (int)max((long long)start - base, 0LL);
       const int hi = (int)min((long long)end - base, (long long)kPix);
       gpt::stage_lane(s, inst, P, base, lo, hi, lin);
       __syncthreads();
-      if (gpt::bwd_walk(s, red, base, lo, hi, start, end, p, dinst, P, lin,
-                        gpt::BlockBarrier{})) {
+      if (gpt::bwd_walk(s, red, inst, base, lo, hi, start, end, p, dinst,
+                        P, lin, gpt::BlockBarrier{})) {
         break;
       }
     }

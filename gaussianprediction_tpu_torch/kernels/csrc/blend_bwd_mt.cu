@@ -18,9 +18,9 @@
 // sub-batch stops there; the block leaves the window once every tile has
 // stopped or passed its segment.
 //
-// Shared memory: the staged block (12 KB) and one [32][8][10] reduction
-// buffer (10 KB) per tile walked at once, 53,248 bytes for four: dynamic
-// shared memory, over the 48 KB static limit.
+// Shared memory: the staged block (12 KB) and two reduction buffers
+// (gpt::Reduce, 10,280 bytes each) per tile walked at once, 94,528 bytes
+// for four: dynamic shared memory, over the 48 KB static limit.
 //
 // Bound on the H100: the same pairs and gradient terms as blend_bwd, so
 // the same f32 operation bound.
@@ -36,7 +36,7 @@ constexpr int kMaxGroups = 4;  // tiles a block walks at once
 
 size_t smem_bytes(int groups) {
   return sizeof(float) * (kCh * kPix) +
-         sizeof(gpt::Reduce) * gpt::kBlendSub * groups;
+         sizeof(gpt::Reduce) * 2 * groups;
 }
 
 __global__ void __launch_bounds__(kPix * kMaxGroups)
@@ -52,8 +52,8 @@ blend_bwd_mt_kernel(const float* __restrict__ inst, long long P,
   const int groups = nthreads / kPix;
   const int grp = tid / kPix;
   const int lin = tid - grp * kPix;
-  gpt::Reduce* red = reinterpret_cast<gpt::Reduce*>(smem + kCh * kPix) +
-                     grp * gpt::kBlendSub;
+  gpt::Reduce* red =
+      reinterpret_cast<gpt::Reduce*>(smem + kCh * kPix) + 2 * grp;
   const gpt::GroupBarrier bar{1 + grp};
   const int t0 = blockIdx.x * tpb;
   const int tlast = min(t0 + tpb, num_tiles);
@@ -84,8 +84,8 @@ blend_bwd_mt_kernel(const float* __restrict__ inst, long long P,
         const int lo = (int)max((long long)start - base, 0LL);
         const int hi = (int)min((long long)end - base, (long long)kPix);
         if (lo < hi) {
-          stopped = gpt::bwd_walk(s, red, base, lo, hi, start, end, p, dinst,
-                                  P, lin, bar);
+          stopped = gpt::bwd_walk(s, red, inst, base, lo, hi, start, end, p,
+                                  dinst, P, lin, bar);
         }
       }
     }

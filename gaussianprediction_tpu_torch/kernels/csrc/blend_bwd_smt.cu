@@ -9,7 +9,7 @@
 // walks its one tile: the recomputed forward state (T, the done latch, the
 // running S) fresh per tile in registers, gpt::bwd_walk over the segment
 // in staged blocks of 256, its ten products summed over the pixels in one
-// fixed order and each column written once by the thread of its instance;
+// fixed order and each column's rows written once by the block's folds;
 // the tile stops at the end of the sub-batch of 32 ranks in which its last
 // pixel latched done. Every instance lies in one tile's segment, so no
 // column is written twice and there are no atomics: two launches are
@@ -32,7 +32,7 @@ blend_bwd_smt_kernel(const float* __restrict__ inst, long long P,
                      int grid_x, int smt, const float* __restrict__ dpix,
                      float* __restrict__ dinst) {
   __shared__ float s[kCh][kPix];
-  __shared__ gpt::Reduce red[gpt::kBlendSub];
+  __shared__ gpt::Reduce red[2];
   const int lin = threadIdx.x;
   const long long t0 = (long long)blockIdx.x * smt;
   const int tlast = (int)min(t0 + smt, (long long)num_tiles);
@@ -40,13 +40,13 @@ blend_bwd_smt_kernel(const float* __restrict__ inst, long long P,
     const int start = tile_start[t];
     const int end = tile_end[t];
     gpt::BwdPixel p = gpt::bwd_pixel(t, grid_x, lin, dpix);
-    // each walk ends on a barrier after its last read of s[][] and red
+    // each walk's last read of s[][] precedes its last barrier
     for (int base = start; base < end; base += kPix) {
       const int nb = min(kPix, end - base);
       gpt::stage_lane(s, inst, P, base, 0, nb, lin);
       __syncthreads();
-      if (gpt::bwd_walk(s, red, base, 0, nb, start, end, p, dinst, P, lin,
-                        gpt::BlockBarrier{})) {
+      if (gpt::bwd_walk(s, red, inst, base, 0, nb, start, end, p, dinst, P,
+                        lin, gpt::BlockBarrier{})) {
         break;
       }
     }

@@ -21,6 +21,30 @@ inline RowPtrs make_row_ptrs(const void* const* ptrs, int k) {
   return r;
 }
 
+// ------------------------------------------------- 16-byte row copies
+// The copy kernels (stack_rows, interleave_rows) move 4 consecutive
+// positions of a row at a time: one float4 where the row's base is 16-byte
+// aligned (`vec`), else 4 scalars.
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+}
+
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  }
+}
+
 // ---------------------------------------------------------------- blend
 // Packed instance channels of the [16, P] SoA the blend kernels read.
 constexpr int kBlendPix = 256;  // pixels per 16x16 tile, one thread each
@@ -164,7 +188,16 @@ __device__ __forceinline__ void fwd_store(float* o, const FwdPixel& p) {
 constexpr int kBlendWarps = kBlendPix / 32;
 constexpr int kBlendSub = 32;   // instances per reduction sub-batch
 constexpr int kBlendGrad = 10;  // gradient rows written per instance
-typedef float Reduce[kBlendWarps][kBlendGrad];  // red[j][warp][k]
+
+// One sub-batch's warp sums: product k of instance j from warp w at
+// v[k * kRedRow + w * 32 + j]. The row stride is odd, so the ten lanes that
+// write one instance's ten products hit ten banks, and the 32 lanes that
+// read one (product, warp) row read 32 consecutive words. The walks keep
+// two, one filled while the other is folded.
+constexpr int kRedRow = kBlendWarps * kBlendSub + 1;
+struct Reduce {
+  float v[kBlendGrad * kRedRow];
+};
 
 // One pixel's backward state: its centre, d(r, g, b, z) and Q from dpix,
 // the recomputed T and done latch, and the running inclusive S of w * v.
@@ -228,11 +261,87 @@ __device__ __forceinline__ bool bwd_terms(const Staged* s, int i,
   return true;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// ------------------------------- blend backward: the warp's ten sums
+// The ten products of an instance are summed over a warp's 32 pixels by a
+// reduce-scatter: at xor offsets 16, 8, 4, 2, 1 the two lanes of a pair
+// hold the partial sums of the same n products; the lane whose offset bit
+// is clear keeps the first h = ceil(n / 2), its partner the rest, and each
+// adds the partner's partial to its own. That is 5 + 3 + 2 + 1 + 1 = 12
+// shuffles, where a butterfly of each product takes 50. Every partial adds
+// the same two lanes' values as the butterfly x + shfl_xor(x, o) does (f32
+// addition commutes), so each product's sum has the butterfly's bits: over
+// lanes [0, 32) it is the sum of halves, (x[l] + x[l + 16]) and so on down
+// to offset 1, the order the plain version takes with sums="kernel"
+// (ops/rasterize_kernels.py:_pixel_sums). Which lane ends with
+// which product depends on the lane alone (product k at lane 0, 2, 4, 8,
+// 12, 16, 18, 20, 24, 28): `ScatterPlan` is that split, made once.
+constexpr int kScatterSteps = 5;
+
+struct ScatterPlan {
+  int h[kScatterSteps];  // products kept by the lower lane at each offset
+  int k;                 // the product this lane ends with; -1: none
+};
+
+__device__ __forceinline__ ScatterPlan scatter_plan(int lane) {
+  ScatterPlan s;
+  int n = kBlendGrad, k = 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int l = 0; l < kScatterSteps; ++l) {
+    const bool up = (lane >> (kScatterSteps - 1 - l)) & 1;
+    const int h = (n + 1) >> 1;
+    s.h[l] = h;
+    k = up ? k + h : k;
+    n = up ? n - h : h;
   }
+  s.k = n == 1 ? k : -1;
+  return s;
+}
+
+// v[idx] for an index that differs between lanes, as selects (a register
+// array indexed at run time would go to local memory).
+template <int M>
+__device__ __forceinline__ float pick(const float (&v)[M], int idx) {
+  float r = 0.0f;
+#pragma unroll
+  for (int u = 0; u < M; ++u) r = idx == u ? v[u] : r;
+  return r;
+}
+
+// One step at xor offset o: v holds this lane's partials (the first n of
+// M), w receives the h (lower lane) or n - h (upper lane) it keeps.
+template <int M>
+__device__ __forceinline__ void scatter_step(const float (&v)[M],
+                                             float (&w)[(M + 1) / 2], int h,
+                                             int lane, int o) {
+  const bool up = (lane & o) != 0;
+#pragma unroll
+  for (int j = 0; j < (M + 1) / 2; ++j) {
+    const float hi = pick(v, h + j);
+    const float keep = up ? hi : v[j];
+    const float give = up ? v[j] : hi;
+    w[j] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, give, o));
+  }
+}
+
+// The warp's sum of product plan.k (meaningless where plan.k < 0).
+__device__ __forceinline__ float warp_scatter(const float (&g)[kBlendGrad],
+                                              const ScatterPlan& plan,
+                                              int lane) {
+  float a[5], b[3], c[2], d[1], e[1];
+  scatter_step(g, a, plan.h[0], lane, 16);
+  scatter_step(a, b, plan.h[1], lane, 8);
+  scatter_step(b, c, plan.h[2], lane, 4);
+  scatter_step(c, d, plan.h[3], lane, 2);
+  scatter_step(d, e, plan.h[4], lane, 1);
+  return e[0];
+}
+
+// Sum of product k of instance j over the eight warps, left to right.
+__device__ __forceinline__ float fold_warps(const Reduce& rb, int k, int j) {
+  const float* q = rb.v + k * kRedRow + j;
+  float x = q[0];
+#pragma unroll
+  for (int w = 1; w < kBlendWarps; ++w) x = __fadd_rn(x, q[w * kBlendSub]);
   return x;
 }
 
@@ -266,75 +375,81 @@ struct GroupBarrier {
 // The backward walk of lanes [lo, hi) of the staged block (its lane 0 is
 // instance `base`) for a tile whose segment is [start, end), by the tile's
 // 256 threads (lin: this thread's pixel). Each instance's ten products are
-// summed over the tile's pixels in one fixed order: warp shuffles (skipped
-// by a warp none of whose pixels the instance touches), then the eight
-// warps in order through red[][][]; one thread per instance then writes
-// rows 0-9 of its column of dinst once. Sums go by sub-batches of 32
-// instances of the tile's segment (ranks 32k .. 32k+31 from `start`), cut
-// short at the block's edge; at the end of a whole sub-batch (or of the
-// segment) the walk returns true if every pixel of the tile is done, and
-// the tile stops there. So every launch geometry writes the same columns
-// as the classic kernel: the segment up to the end of the sub-batch in
-// which its last pixel latched.
+// summed over the tile's pixels in one fixed order: the warp's
+// reduce-scatter (warp_scatter; skipped by a warp none of whose pixels the
+// instance touches), then the eight warps left to right (fold_warps).
+// Sums go by sub-batches of 32 instances of the tile's segment (ranks
+// 32k .. 32k+31 from `start`), cut short at the block's edge. In a
+// sub-batch each warp's ten sums of each instance go to red[buf]; then one
+// barrier, and all 256 threads fold: for instance j = lane, warp 0 writes
+// rows 0-1 of its column of dinst, warp 1 rows 2 and 9, warps 2-7 rows
+// 3-8, each row's 32 columns in one coalesced store. The next sub-batch
+// fills red[buf ^ 1] meanwhile; its barrier is the one that frees red[buf]
+// again, so one barrier a sub-batch suffices. The fold reads ca, cb, cc
+// from `inst`, not from the staged block: a thread may fold after its
+// partners have returned and begun staging the next block (the caller's
+// barrier after staging orders both buffers for the next call). At the
+// end of a whole sub-batch (or of the segment) that barrier also counts
+// the done pixels; when all are done, the walk folds the sub-batch and
+// returns true, and the tile stops there. So every launch geometry writes
+// the same columns as the classic kernel: the segment up to the end of
+// the sub-batch in which its last pixel latched.
 template <class Bar>
 __device__ __forceinline__ bool bwd_walk(const Staged* s, Reduce* red,
+                                         const float* __restrict__ inst,
                                          long long base, int lo, int hi,
                                          int start, int end, BwdPixel& p,
-                                         float* dinst, long long P, int lin,
+                                         float* __restrict__ dinst,
+                                         long long P, int lin,
                                          const Bar& bar) {
   const int lane = lin & 31;
   const int warp = lin >> 5;
+  const ScatterPlan plan = scatter_plan(lane);
+  int buf = 0;
   for (int i = lo; i < hi;) {
     const int r = (int)(base + i - start);  // rank in the segment
     const int n = min(hi - i, kBlendSub - (r & (kBlendSub - 1)));
+    float* rb = red[buf].v + max(plan.k, 0) * kRedRow + warp * kBlendSub;
     for (int j = 0; j < n; ++j) {
       float g[kBlendGrad];
 #pragma unroll
       for (int k = 0; k < kBlendGrad; ++k) g[k] = 0.0f;
       const bool contrib = bwd_terms(s, i + j, p, g);
-      if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-        for (int k = 0; k < kBlendGrad; ++k) g[k] = warp_sum(g[k]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kBlendGrad; ++k) red[j][warp][k] = g[k];
-      }
+      const float x = __any_sync(0xffffffffu, contrib)
+                          ? warp_scatter(g, plan, lane)
+                          : 0.0f;
+      if (plan.k >= 0) rb[j] = x;
     }
-    bar.sync();
-    if (lin < n) {
-      const int c = i + lin;
-      float a[kBlendGrad];
-#pragma unroll
-      for (int k = 0; k < kBlendGrad; ++k) {
-        float x = red[lin][0][k];
-#pragma unroll
-        for (int wi = 1; wi < kBlendWarps; ++wi) {
-          x = __fadd_rn(x, red[lin][wi][k]);
-        }
-        a[k] = x;
-      }
-      const float ca = s[2][c], cb = s[3][c], cc = s[4][c];
-      float* o = dinst + (base + c);
-      o[0 * P] = __fadd_rn(__fmul_rn(ca, a[0]), __fmul_rn(cb, a[1]));
-      o[1 * P] = __fadd_rn(__fmul_rn(cb, a[0]), __fmul_rn(cc, a[1]));
-      o[2 * P] = __fmul_rn(-0.5f, a[2]);
-      o[3 * P] = -a[3];
-      o[4 * P] = __fmul_rn(-0.5f, a[4]);
-      o[5 * P] = a[5];
-      o[6 * P] = a[6];
-      o[7 * P] = a[7];
-      o[8 * P] = a[8];
-      o[9 * P] = a[9];
-    }
-    i += n;
-    // the barrier before red[][][] is refilled; at a sub-batch's end, also
-    // the all-done test
-    if (((r + n) & (kBlendSub - 1)) == 0 || base + i == end) {
-      if (bar.count(p.done) == kBlendPix) return true;
+    // the barrier; at a sub-batch's end, also the all-done test
+    bool all_done = false;
+    if (((r + n) & (kBlendSub - 1)) == 0 || base + i + n == end) {
+      all_done = bar.count(p.done) == kBlendPix;
     } else {
       bar.sync();
     }
+    if (lane < n) {
+      const Reduce& f = red[buf];
+      const long long c = base + i + lane;
+      float* o = dinst + c;
+      if (warp == 0) {
+        const float a0 = fold_warps(f, 0, lane);
+        const float a1 = fold_warps(f, 1, lane);
+        const float ca = inst[2 * P + c], cb = inst[3 * P + c],
+                    cc = inst[4 * P + c];
+        o[0] = __fadd_rn(__fmul_rn(ca, a0), __fmul_rn(cb, a1));
+        o[P] = __fadd_rn(__fmul_rn(cb, a0), __fmul_rn(cc, a1));
+      } else if (warp == 1) {
+        o[2 * P] = __fmul_rn(-0.5f, fold_warps(f, 2, lane));
+        o[9 * P] = fold_warps(f, 9, lane);
+      } else {
+        const int k = warp + 1;
+        const float a = fold_warps(f, k, lane);
+        o[k * P] = k == 3 ? -a : k == 4 ? __fmul_rn(-0.5f, a) : a;
+      }
+    }
+    buf ^= 1;
+    i += n;
+    if (all_done) return true;
   }
   return false;
 }

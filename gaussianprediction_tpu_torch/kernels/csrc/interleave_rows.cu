@@ -20,29 +20,11 @@
 // and whether the output rows are (base aligned and n % 4 == 0); a row that
 // is not is read (or written) as 4 scalars inside the same kernel, and the
 // positions past the last full group of 4 take the scalar path.
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float4 load4(const float* p, bool vec) {
-  if (vec) return *reinterpret_cast<const float4*>(p);
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
-  if (vec) {
-    *reinterpret_cast<float4*>(p) = v;
-  } else {
-    p[0] = v.x;
-    p[1] = v.y;
-    p[2] = v.z;
-    p[3] = v.w;
-  }
-}
 
 __device__ __forceinline__ float valid_of(float g) {
   return g >= 0.0f ? 1.0f : 0.0f;
@@ -56,16 +38,18 @@ __global__ void __launch_bounds__(kThreads) interleave_rows_kernel(
   if (i + 4 <= n) {
     float4 v[11];
 #pragma unroll
-    for (int c = 0; c < 11; ++c) v[c] = load4(rows.p[c] + i, (vec_rows >> c) & 1);
+    for (int c = 0; c < 11; ++c) {
+      v[c] = gpt::load4(rows.p[c] + i, (vec_rows >> c) & 1);
+    }
     const float4 g = v[10];
     const float4 valid = make_float4(valid_of(g.x), valid_of(g.y),
                                      valid_of(g.z), valid_of(g.w));
     const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-    for (int c = 0; c < 11; ++c) store4(out + c * n + i, v[c], vec_out);
-    store4(out + 11 * n + i, valid, vec_out);
+    for (int c = 0; c < 11; ++c) gpt::store4(out + c * n + i, v[c], vec_out);
+    gpt::store4(out + 11 * n + i, valid, vec_out);
 #pragma unroll
-    for (int c = 12; c < 16; ++c) store4(out + c * n + i, zero, vec_out);
+    for (int c = 12; c < 16; ++c) gpt::store4(out + c * n + i, zero, vec_out);
     return;
   }
   for (long long j = i; j < n; ++j) {  // the tail: fewer than 4 positions
@@ -77,10 +61,6 @@ __global__ void __launch_bounds__(kThreads) interleave_rows_kernel(
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
-}
-
 }  // namespace
 
 extern "C" int gpt_interleave_rows(const void* const* rows, long long n,
@@ -88,8 +68,10 @@ extern "C" int gpt_interleave_rows(const void* const* rows, long long n,
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   int vec_rows = 0;
-  for (int c = 0; c < 11; ++c) vec_rows |= aligned16(rows[c]) ? 1 << c : 0;
-  const int vec_out = aligned16(out) && n % 4 == 0;
+  for (int c = 0; c < 11; ++c) {
+    vec_rows |= gpt::aligned16(rows[c]) ? 1 << c : 0;
+  }
+  const int vec_out = gpt::aligned16(out) && n % 4 == 0;
   const long long groups = (n + 3) / 4;
   const unsigned blocks = (unsigned)((groups + kThreads - 1) / kThreads);
   interleave_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(

@@ -171,12 +171,13 @@ def rasterize_binned_flat_plain(inst, tile_start, tile_end, grid_x: int,
 
 def rasterize_binned_bwd_flat_plain(inst, tile_start, tile_end, grid_x: int,
                                     grid_y: int, dpix,
-                                    aux: Optional[dict] = None):
+                                    aux: Optional[dict] = None,
+                                    sums: str = "torch"):
     """Plain version of the flat backward: rk.blend_bwd_walk over
-    flat_schedule."""
+    flat_schedule (sums as rk.blend_bwd_walk's)."""
     return rk.blend_bwd_walk(
         inst, tile_start, tile_end, grid_x, grid_y, dpix,
-        flat_schedule(inst, tile_start, tile_end), aux)
+        flat_schedule(inst, tile_start, tile_end), aux, sums)
 
 
 def num_ranges(device, num_tiles: int) -> int:
@@ -254,13 +255,14 @@ def rasterize_binned_smt_plain(inst, tile_start, tile_end, grid_x: int,
 
 def rasterize_binned_bwd_smt_plain(inst, tile_start, tile_end, grid_x: int,
                                    grid_y: int, smt: int, dpix,
-                                   aux: Optional[dict] = None):
+                                   aux: Optional[dict] = None,
+                                   sums: str = "torch"):
     """Plain version of the SMT backward: rk.blend_bwd_walk over
-    smt_schedule."""
+    smt_schedule (sums as rk.blend_bwd_walk's)."""
     _check_tpb(smt)
     return rk.blend_bwd_walk(inst, tile_start, tile_end, grid_x, grid_y,
                              dpix, smt_schedule(tile_start, tile_end, smt),
-                             aux)
+                             aux, sums)
 
 
 def rasterize_binned_smt(inst, tile_start, tile_end, grid_x: int,
@@ -322,13 +324,14 @@ def rasterize_binned_mt_plain(inst, tile_start, tile_end, grid_x: int,
 
 def rasterize_binned_bwd_mt_plain(inst, tile_start, tile_end, grid_x: int,
                                   grid_y: int, tpb: int, dpix,
-                                  aux: Optional[dict] = None):
+                                  aux: Optional[dict] = None,
+                                  sums: str = "torch"):
     """Plain version of the multi-tile backward: rk.blend_bwd_walk over
-    mt_schedule."""
+    mt_schedule (sums as rk.blend_bwd_walk's)."""
     _check_tpb(tpb)
     return rk.blend_bwd_walk(inst, tile_start, tile_end, grid_x, grid_y,
                              dpix, mt_schedule(tile_start, tile_end, tpb),
-                             aux)
+                             aux, sums)
 
 
 def rasterize_binned_mt(inst, tile_start, tile_end, grid_x: int,

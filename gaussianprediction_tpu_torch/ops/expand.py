@@ -38,12 +38,19 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _check_rows(rows, n):
+def _check_rows(rows, n) -> bool:
+    """Raise unless every row is a contiguous [n] float32 tensor and all lie
+    on the CPU or all on the card; return whether on the card. One pass:
+    the wrappers call it on every launch."""
+    cuda = rows[0].is_cuda
     for r in rows:
-        if r.dtype != torch.float32 or r.dim() != 1 or r.shape[0] != n:
+        if r.dtype is not torch.float32 or r.shape != (n,):
             raise ValueError("rows must be 1-d float32 tensors of one length")
         if not r.is_contiguous():
             raise ValueError("rows must be contiguous")
+        if r.is_cuda is not cuda:
+            raise ValueError("tensors must all be on one device")
+    return cuda
 
 
 def _on_cuda(*tensors) -> bool:
@@ -70,11 +77,12 @@ def stack_rows(chans, nch: int = NCH):
     k, n = len(chans), chans[0].shape[0]
     if not 1 <= k <= nch <= 16:
         raise ValueError(f"need 1 <= k={k} <= nch={nch} <= 16")
-    _check_rows(chans, n)
-    if not _on_cuda(*chans):
+    if not _check_rows(chans, n):
         return stack_rows_plain(chans, nch)
-    b = _kernels()
     out = torch.empty((nch, n), dtype=torch.float32, device=chans[0].device)
+    if n == 0:
+        return out
+    b = _kernels()
     b.launch("gpt_stack_rows", b.row_pointers(chans), k, nch, n,
              out.data_ptr(), _stream())
     launch_counts["stack"] += 1
@@ -190,8 +198,7 @@ def interleave_rows(chans):
     if len(chans) != 11:
         raise ValueError("interleave_rows takes 11 rows")
     n = chans[0].shape[0]
-    _check_rows(chans, n)
-    if not _on_cuda(*chans):
+    if not _check_rows(chans, n):
         return interleave_rows_plain(chans)
     b = _kernels()
     out = torch.empty((NCH, n), dtype=torch.float32, device=chans[0].device)

@@ -274,17 +274,48 @@ def pixel_grads(out, g):
 
 
 SUB = 32   # instances per reduction sub-batch of the backward kernels
+WARPS = PIX // 32
+
+
+def _pixel_sums(x, sums: str):
+    """[..., T, 256] -> [..., T]: each sum over a tile's pixels.
+
+    sums="kernel": the backward kernels' order, so that the plain version
+    can hold them bit for bit. Within each warp of 32 pixels, halves are
+    added at offsets 16, 8, 4, 2, 1 (lanes l and l + o, the pairs of the
+    kernels' warp reduce-scatter); then the eight warps' sums left to
+    right. sums="torch" (the plain versions' default, the wrappers' CPU
+    path): torch's own reduction. The CPU path trains in it because its
+    trajectory is held to the JAX package's at tolerances measured in it:
+    in the kernels' order the roundoff differs, and over 55 steps of the
+    `test` preset one or two pixels cross a blend threshold at three
+    steps."""
+    if sums == "torch":
+        return x.sum(dim=-1)
+    if sums != "kernel":
+        raise ValueError(f"sums must be 'kernel' or 'torch', not {sums!r}")
+    x = x.unflatten(-1, (WARPS, 32))
+    for o in (16, 8, 4, 2, 1):
+        x = x[..., :o] + x[..., o:]
+    x = x[..., 0]
+    acc = x[..., 0]
+    for w in range(1, WARPS):
+        acc = acc + x[..., w]
+    return acc
 
 
 def blend_bwd_walk(inst, tile_start, tile_end, grid_x: int, grid_y: int,
-                   dpix, schedule, aux: Optional[dict] = None):
+                   dpix, schedule, aux: Optional[dict] = None,
+                   sums: str = "torch"):
     """The plain backward blend over a schedule (as blend_fwd_walk): at each
     step every tile recomputes the forward for the instance it is handed,
     with the kernel's per-pixel arithmetic in the same order, and sums the
-    ten per-pixel products over its 256 pixels. A tile writes the columns of
-    its segment up to the end of the sub-batch of 32 ranks in which its last
-    pixel latched done, as the kernels do, so any schedule that hands each
-    tile its segment in order writes the same columns with the same bits."""
+    ten per-pixel products over its 256 pixels in the order `sums` names
+    (_pixel_sums: "kernel" gives the kernels' bits). A tile writes the
+    columns of its segment up to the end of the sub-batch of 32 ranks in
+    which its last pixel latched done, as the kernels do, so any schedule
+    that hands each tile its segment in order writes the same columns with
+    the same bits."""
     dev = inst.device
     T = grid_x * grid_y
     P = inst.shape[1]
@@ -334,10 +365,10 @@ def blend_bwd_walk(inst, tile_start, tile_end, grid_x: int, grid_y: int,
         dpower = d[C_OP] * G * dalpha
         gdx = dpower * dx
         gdy = dpower * dy
-        terms = (gdx, gdy, gdx * dx, gdx * dy, gdy * dy, G * dalpha,
-                 d0 * w, d1 * w, d2 * w, d3 * w)
-        sx, sy, sxx, sxy, syy, sop, sr, sg, sb, sz = (
-            torch.where(contrib, x, zero).sum(dim=1) for x in terms)
+        terms = torch.stack([gdx, gdy, gdx * dx, gdx * dy, gdy * dy,
+                             G * dalpha, d0 * w, d1 * w, d2 * w, d3 * w])
+        sx, sy, sxx, sxy, syy, sop, sr, sg, sb, sz = _pixel_sums(
+            torch.where(contrib, terms, zero), sums)
         ca, cb, cc = d[C_CA, :, 0], d[C_CB, :, 0], d[C_CC, :, 0]
         grads = torch.stack([ca * sx + cb * sy, cb * sx + cc * sy,
                              -0.5 * sxx, -sxy, -0.5 * syy, sop, sr, sg, sb,
@@ -356,9 +387,11 @@ def blend_bwd_walk(inst, tile_start, tile_end, grid_x: int, grid_y: int,
 
 
 def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
-                               grid_y: int, dpix, aux: Optional[dict] = None):
+                               grid_y: int, dpix, aux: Optional[dict] = None,
+                               sums: str = "torch"):
     """Plain PyTorch backward blend: blend_bwd_walk over the rank inside
-    each tile's segment (classic_schedule).
+    each tile's segment (classic_schedule), its pixel sums in the order
+    `sums` names.
 
     aux (optional) receives the data-dependent work: "pairs", "instances"
     and "flops" as rasterize_binned_plain counts them, with 37 more f32
@@ -367,7 +400,7 @@ def rasterize_binned_bwd_plain(inst, tile_start, tile_end, grid_x: int,
     sched = classic_schedule(tile_start.to(torch.int64),
                              tile_end.to(torch.int64))
     return blend_bwd_walk(inst, tile_start, tile_end, grid_x, grid_y, dpix,
-                          sched, aux)
+                          sched, aux, sums)
 
 
 def rasterize_binned_bwd(inst, tile_start, tile_end, grid_x: int,

@@ -5,9 +5,15 @@ path-flattened keys "params/<name>/...", "opt/m/...", "opt/v/...",
 "opt/step", and under "meta/" the alive masks (alive, kpt_alive), the
 densification statistics and the iteration. The JAX package stores its
 PRNG key as meta/rng_key; the port stores the state of its
-torch.Generator as meta/torch_generator (uint8). A checkpoint of either
-package loads here (convert.load_jax_checkpoint reads the arrays); the
-port's own round-trips bit for bit.
+torch.Generator as meta/torch_generator (uint8), and beside it a
+meta/rng_key so that the JAX package's loader reads the port's
+checkpoints too: the key data of PRNGKey(2024 * seed) (uint32[2], the
+high and low 32 bits), the key the JAX Trainer starts from. It is a fresh
+key, not a continuation of the torch stream: a JAX run resumed from it
+draws other numbers than the port's run would have. A checkpoint of
+either package loads here (convert.load_jax_checkpoint reads the arrays;
+the port's own generator state is preferred to the key); the port's own
+round-trips bit for bit.
 """
 from __future__ import annotations
 
@@ -23,6 +29,15 @@ from gaussianprediction_tpu_torch.models.gaussians import (
 )
 
 GENERATOR_KEY = "meta/torch_generator"
+
+
+def jax_key_data(seed: int) -> np.ndarray:
+    """The key data of the JAX package's PRNGKey(2024 * seed), computed
+    without JAX: threefry's key is the seed's high and low 32 bits (JAX
+    with 64-bit integers off keeps the low word only; the two agree for
+    0 <= 2024 * seed < 2^32)."""
+    x = 2024 * int(seed)
+    return np.array([(x >> 32) & 0xFFFFFFFF, x & 0xFFFFFFFF], np.uint32)
 
 
 def _flatten(tree, prefix=""):
@@ -42,13 +57,14 @@ def _flatten(tree, prefix=""):
 
 def save_checkpoint(path: str, state: GaussianState, opt_state,
                     iteration: int,
-                    generator: Optional[torch.Generator] = None):
-    """Write params, Adam state, masks, statistics, the iteration and the
-    generator's state to `path` (.npz)."""
+                    generator: Optional[torch.Generator] = None,
+                    seed: int = 0):
+    """Write params, Adam state, masks, statistics, the iteration, the JAX
+    key of `seed` and the generator's state to `path` (.npz)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     meta = {"alive": state.alive, "kpt_alive": state.kpt_alive,
             **{k: getattr(state, k) for k in STATS},
-            "iteration": np.int64(iteration)}
+            "iteration": np.int64(iteration), "rng_key": jax_key_data(seed)}
     if generator is not None:
         meta["torch_generator"] = generator.get_state()
     np.savez(path, **_flatten({"params": state.params, "opt": opt_state,

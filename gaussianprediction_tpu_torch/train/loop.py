@@ -123,6 +123,7 @@ class Trainer:
         self.log_every = log_every
         self.quiet = quiet
         seed = cfg.train.seed if seed is None else seed
+        self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(2024 * seed)
         self.state = self._init_state()
@@ -507,7 +508,7 @@ class Trainer:
         from gaussianprediction_tpu_torch.train import checkpoint as ckpt
 
         ckpt.save_checkpoint(path, self.state, self.opt_state,
-                             self.iteration, self.generator)
+                             self.iteration, self.generator, self.seed)
 
     def load_checkpoint(self, path: str):
         """Restore a checkpoint of either package; the generator's state

@@ -26,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import n, one_torch_thread, scene, t  # noqa: F401
+from torch_port_util import (  # noqa: F401
+    crafted_stream, n, one_torch_thread, scene, t,
+)
 
 from gaussianprediction_tpu.data.synthetic import orbit_camera
 from gaussianprediction_tpu.ops import instance_stream as JS
@@ -204,3 +206,51 @@ def test_render_gradients_match_jax_oracle():
         scale = max(np.abs(np.asarray(b)).max(), 1e-6)
         np.testing.assert_allclose(n(a.grad), np.asarray(b), rtol=0,
                                    atol=2e-4 * scale + 1e-8, err_msg=name)
+
+
+def test_backward_plain_sums_in_kernel_order():
+    """sums="kernel" sums each tile's pixels as the backward kernels do:
+    halves within each warp of 32 pixels (offsets 16 down to 1), then the
+    eight warps left to right; bit for bit against a float32 numpy loop in
+    that order. The whole plain backward in that order differs from the
+    default (torch's reduction) only by the sums' f32 roundoff (within
+    1e-6 of each row's largest magnitude; 2.4e-7 measured), since the
+    per-pixel walk (T, S, the latch) does not read the sums; and the
+    variants' plain versions in it equal the classic one bit for bit."""
+    from gaussianprediction_tpu_torch.ops import blend_variants as TBV
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((10, 3, 256))
+         * 10.0 ** rng.integers(-6, 6, (10, 3, 256))).astype(np.float32)
+    x[rng.random(x.shape) < 0.5] = 0.0
+    got = n(TR._pixel_sums(t(x), "kernel"))
+    ref = np.empty((10, 3), np.float32)
+    for i in np.ndindex(10, 3):
+        w = x[i].reshape(8, 32)
+        for o in (16, 8, 4, 2, 1):
+            w = (w[:, :o] + w[:, o:]).astype(np.float32)
+        acc = w[0, 0]
+        for k in range(1, 8):
+            acc = np.float32(acc + w[k, 0])
+        ref[i] = acc
+    assert np.array_equal(got.view(np.int32), ref.view(np.int32))
+    with pytest.raises(ValueError):
+        TR._pixel_sums(t(x), "serial")
+
+    counts = np.random.default_rng(2).integers(0, 400, GX * GY)
+    inst, ts, te = (t(a) for a in crafted_stream(counts, GX, 7,
+                                                  opacity=(0.3, 0.9)))
+    out = TR.rasterize_binned(inst, ts, te, GX, GY, False)
+    assert (n(out)[..., TR.O_T] < 1e-3).any()        # latches fire
+    cot = t(np.random.default_rng(3).normal(size=out.shape).astype(
+        np.float32))
+    dpix = TR.pixel_grads(out, cot)
+    a = TR.rasterize_binned_bwd_plain(inst, ts, te, GX, GY, dpix,
+                                      sums="kernel")
+    b = TR.rasterize_binned_bwd_plain(inst, ts, te, GX, GY, dpix)
+    scale = b[:10].abs().amax(dim=1, keepdim=True)
+    assert float(scale.min()) > 0 and not torch.equal(a, b)
+    assert float(((a - b)[:10].abs() / scale).max()) <= 1e-6
+    c = TBV.rasterize_binned_bwd_smt_plain(inst, ts, te, GX, GY, 3, dpix,
+                                           sums="kernel")
+    assert torch.equal(c.view(torch.int32), a.view(torch.int32))

@@ -178,6 +178,27 @@ def test_render_set_stage1(model):
     assert torch.equal(torch.clamp(rgb, 0, 1), torch.from_numpy(ours[0]))
 
 
+@pytest.mark.parametrize("it", [30, 55], ids=["in_anneal", "past"])
+def test_render_set_repeatable(it):
+    """render_set run twice gives the same bits. At 30 the `test` preset is
+    in stage 1 inside the xyz-noise anneal (sigma 0.04 of 0.1, to 0 at
+    50): every view draws its noise from a generator re-seeded to 0; at 55
+    none is drawn."""
+    tc = tcfg.get_preset("test")
+    assert tstep.stage_of(tc, it) == 1
+    assert (it < tc.train.xyz_noise_iteration) == (it == 30)
+    params, alive = stage1_params(tc, 300, seed=4)
+    ts = state_from_params(params, alive, device="cpu")
+    views = [torbit(0.3 + 2.0 * i, width=64, height=64, time=tt, uid=i)
+             for i, tt in enumerate((0.2, 0.7))]
+    bg = np.zeros(3, np.float32)
+    a, _, _ = teval.render_set(ts, tc, it, views, bg)
+    b, _, _ = teval.render_set(ts, tc, it, views, bg)
+    assert a[0].max() > 0.05
+    for x, y in zip(a, b):
+        assert np.array_equal(x.view(np.int32), y.view(np.int32))
+
+
 def test_convert_loads_jax_checkpoint(model, tmp_path):
     params, alive = model
     js = jax_state(params, alive)

@@ -10,7 +10,9 @@ package's, on the `test` preset at 32x32.
 - A JAX checkpoint loads into the port's Trainer with params, Adam state,
   masks, statistics and iteration equal bit for bit, and the port's PLY
   of that state is the JAX package's byte for byte; the port's own
-  checkpoint round-trips bit for bit, its generator state included.
+  checkpoint round-trips bit for bit, its generator state included, and
+  loads through the JAX package's loader bit for bit, with the key of
+  the JAX Trainer's PRNGKey(2024 * seed).
 - Trajectory: the JAX Trainer saves a checkpoint at iteration 0 and runs 55
   iterations (0 -> 1 at 10; densify, prune and the capacity re-probe at
   50). The port's Trainer loads that checkpoint and runs the same 55
@@ -43,6 +45,7 @@ from torch_port_util import one_torch_thread, t  # noqa: F401
 from gaussianprediction_tpu.config import get_preset as jget_preset
 from gaussianprediction_tpu.data.scene import Scene as JScene
 from gaussianprediction_tpu.models import gaussians as JG
+from gaussianprediction_tpu.train import checkpoint as jckpt
 from gaussianprediction_tpu.data.scene import (
     synthetic_scene_info as jsynthetic,
 )
@@ -206,6 +209,39 @@ def test_jax_checkpoint_loads_bit_for_bit(jinfo, jax_run, tmp_path):
         (tmp_path / "jax.ply").read_bytes()
 
 
+def test_port_checkpoint_loads_in_jax(jinfo, jax_run, tmp_path):
+    """The port's Trainer, two iterations past the JAX checkpoint at 55,
+    writes a checkpoint that the JAX loader reads with the JAX Trainer's
+    templates: every array equal bit for bit, the iteration, and the key
+    data of PRNGKey(2024 * seed)."""
+    seed = 5
+    tr = Trainer(get_preset("test"), Scene(_port_info(jinfo), seed=SEED),
+                 seed=seed, device=CPU, quiet=True)
+    tr.load_checkpoint(str(jax_run["dir"] / "chkpnt55.npz"))
+    for i in (ITERS + 1, ITERS + 2):
+        tr.train_one(i)
+        tr.iteration = i
+    path = str(tmp_path / "port.npz")
+    tr.save_checkpoint(path)
+    j = jax_run["trainer"]
+    state, opt_state, iteration, key = jckpt.load_checkpoint(
+        path, j.state, j.opt_state)
+    assert iteration == ITERS + 2
+    x = 2024 * seed
+    np.testing.assert_array_equal(jax.random.key_data(key),
+                                  np.array([x >> 32, x & 0xFFFFFFFF]))
+    ours = _flat(tr.state, tr.opt_state)
+    theirs = ckpt._flatten({"params": state.params, "opt": opt_state,
+                            "meta": {"alive": state.alive,
+                                     "kpt_alive": state.kpt_alive,
+                                     **{k: getattr(state, k)
+                                        for k in ckpt.STATS}}})
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
+        assert ours[k].dtype == v.dtype, k
+        assert ours[k].tobytes() == v.tobytes(), k
+
+
 def test_trajectory_matches_jax(jinfo, jax_run):
     cfg = get_preset("test")
     tr = ReplayTrainer(cfg, Scene(_port_info(jinfo), seed=SEED),
@@ -287,7 +323,10 @@ def test_full_stage_progression_and_checkpoint_round_trip(tmp_path):
     with np.load(path) as f:
         assert sorted(fa) == sorted(k for k in f.files
                                     if k not in ("meta/iteration",
+                                                 "meta/rng_key",
                                                  ckpt.GENERATOR_KEY))
+        np.testing.assert_array_equal(f["meta/rng_key"],
+                                      ckpt.jax_key_data(cfg.train.seed))
         for k, v in fa.items():
             assert v.dtype == f[k].dtype and v.tobytes() == f[k].tobytes()
             assert fb[k].tobytes() == v.tobytes(), k
