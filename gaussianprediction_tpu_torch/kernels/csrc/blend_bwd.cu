@@ -32,8 +32,9 @@
 // The per-pixel arithmetic, the reduction and the column writes are
 // gpt::bwd_walk (common.cuh), which the flat work-list and multi-tile
 // kernels share, so all three write the same bits. alpha, T and the latch
-// come from gpt::pair_terms, the same code as blend_fwd, so the latch fires
-// on the same instance. Every other operation is an _rn intrinsic in the
+// come from gpt::pair_terms, built of the same helpers as blend_fwd's walk
+// (pair_power, pair_opacity, pair_T), so the latch fires on the same
+// instance. Every other operation is an _rn intrinsic in the
 // plain version's order.
 //
 // Bound on the H100: by the f32 arithmetic of the (pixel, instance) pairs

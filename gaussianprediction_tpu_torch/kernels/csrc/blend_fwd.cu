@@ -14,16 +14,24 @@
 // blend weight). The block leaves early once every pixel is done.
 //
 // The per-pixel walk is gpt::fwd_walk (common.cuh), which the flat
-// work-list and multi-tile kernels share: gpt::pair_terms's _rn intrinsics
-// (never contracted into FMAs) in the order of the plain PyTorch version,
-// and IEEE expf.
+// work-list, multi-tile and sequential-tile kernels share: the _rn
+// intrinsics of gpt::pair_power, pair_opacity and pair_T (never contracted
+// into FMAs; the backward's pair_terms is built of the same three) in the
+// order of the plain PyTorch version, and IEEE expf. Each warp covers an 8 x 4 patch of the
+// tile (gpt::fwd_tile_pixel) and skips, 32 instances at a time, every
+// instance whose support box (widened to cover f32 rounding) misses its
+// patch: no pixel of the warp could pass the alpha test there, so the
+// outputs keep their bits. On the card it keeps about half of the (warp,
+// instance) pairs, and the walk evaluates the kept ones two at a time.
 //
 // Bound on the H100: by the f32 arithmetic of the (pixel, instance) pairs
 // evaluated up to each pixel's done latch (11 to 24 operations a pair,
 // by how far the pair gets), against 67 TFLOP/s, beside the instances
 // read up to each tile's last done pixel (12 channels x 4 bytes) and the
-// output written once. Simple and right first: no warp-level culling, no
-// pipelining of the next batch's loads.
+// output written once. The kernel is bound by instruction issue instead:
+// ~75 instructions per kept (warp, instance) pair, each warp evaluating
+// all 32 pixels of a kept pair. Not yet done: pipelining the next batch's
+// loads.
 #include "common.cuh"
 
 namespace {
@@ -40,7 +48,8 @@ blend_fwd_kernel(const float* __restrict__ inst, long long P,
   const int t = blockIdx.x;
   const int lin = threadIdx.x;
   float px, py;
-  gpt::tile_pixel(t, grid_x, lin, px, py);
+  gpt::WarpRect rect;
+  const int pix = gpt::fwd_tile_pixel(t, grid_x, lin, px, py, rect);
   const int start = tile_start[t];
   const int end = tile_end[t];
 
@@ -51,9 +60,9 @@ blend_fwd_kernel(const float* __restrict__ inst, long long P,
     const int nb = min(kPix, end - base);
     gpt::stage_lane(s, inst, P, base, 0, nb, lin);
     __syncthreads();
-    gpt::fwd_walk(s, 0, nb, px, py, with_tidx, p);
+    gpt::fwd_walk(s, 0, nb, px, py, rect, with_tidx, p);
   }
-  gpt::fwd_store(out + ((long long)t * kPix + lin) * 8, p);
+  gpt::fwd_store(out + ((long long)t * kPix + pix) * 8, p);
 }
 
 }  // namespace

@@ -23,6 +23,9 @@
 // grid's output-block map) is not read; padding items (i >= nwork) are
 // never reached.
 //
+// The walk is gpt::fwd_walk with its warp cull (see blend_fwd.cu), called
+// by the whole block for one item at a time.
+//
 // Bound on the H100: the same (pixel, instance) pairs as blend_fwd, so the
 // same f32 operation bound; the list adds 4 bytes per item and tile.
 #include "common.cuh"
@@ -47,7 +50,8 @@ blend_fwd_flat_kernel(const float* __restrict__ inst, long long P,
   const int t1 = tile_cut[blockIdx.x + 1];
   for (int t = tile_cut[blockIdx.x]; t < t1; ++t) {
     float px, py;
-    gpt::tile_pixel(t, grid_x, lin, px, py);
+    gpt::WarpRect rect;
+    const int pix = gpt::fwd_tile_pixel(t, grid_x, lin, px, py, rect);
     const int start = tile_start[t];
     const int end = tile_end[t];
     const int i1 = min(t + 1 < num_tiles ? ft[t + 1] : nw, nw);
@@ -61,9 +65,9 @@ blend_fwd_flat_kernel(const float* __restrict__ inst, long long P,
       const int hi = (int)min((long long)end - base, (long long)kPix);
       gpt::stage_lane(s, inst, P, base, lo, hi, lin);
       __syncthreads();
-      gpt::fwd_walk(s, lo, hi, px, py, with_tidx, p);
+      gpt::fwd_walk(s, lo, hi, px, py, rect, with_tidx, p);
     }
-    gpt::fwd_store(out + ((long long)t * kPix + lin) * 8, p);
+    gpt::fwd_store(out + ((long long)t * kPix + pix) * 8, p);
   }
 }
 

@@ -17,6 +17,10 @@
 // (num_tiles not a multiple of tpb) do nothing: the TPU's empty padding
 // segments (_pad_tiles) have no work either.
 //
+// Each thread's walk is gpt::fwd_walk with its warp cull (see blend_fwd.cu):
+// valid, lo and hi below are the same for the 256 threads of a tile group,
+// and a warp lies in one group, so every warp votes whole.
+//
 // Bound on the H100: the same (pixel, instance) pairs as blend_fwd, so the
 // same f32 operation bound.
 #include <climits>
@@ -29,7 +33,9 @@ constexpr int kPix = gpt::kBlendPix;
 constexpr int kCh = gpt::kBlendCh;
 constexpr int kMaxGroups = 4;  // tiles a block walks at once
 
-__global__ void __launch_bounds__(kPix * kMaxGroups)
+// Two blocks an SM (32 registers, some spilled): at one, as the cull's
+// 56 registers would give, the kernel ran slower on an H100.
+__global__ void __launch_bounds__(kPix * kMaxGroups, 2)
 blend_fwd_mt_kernel(const float* __restrict__ inst, long long P,
                     const int* __restrict__ tile_start,
                     const int* __restrict__ tile_end, int num_tiles,
@@ -57,7 +63,9 @@ blend_fwd_mt_kernel(const float* __restrict__ inst, long long P,
     const int start = valid ? tile_start[t] : 0;
     const int end = valid ? tile_end[t] : 0;
     float px, py;
-    gpt::tile_pixel(valid ? t : 0, grid_x, lin, px, py);
+    gpt::WarpRect rect;
+    const int pix =
+        gpt::fwd_tile_pixel(valid ? t : 0, grid_x, lin, px, py, rect);
     gpt::FwdPixel p = gpt::fwd_pixel();
     for (long long base = ws; base < we; base += kPix) {
       // every pixel done or past its segment -> leave; also the barrier
@@ -70,10 +78,10 @@ blend_fwd_mt_kernel(const float* __restrict__ inst, long long P,
       if (valid) {
         const int lo = (int)max((long long)start - base, 0LL);
         const int hi = (int)min((long long)end - base, (long long)kPix);
-        gpt::fwd_walk(s, lo, hi, px, py, with_tidx, p);
+        gpt::fwd_walk(s, lo, hi, px, py, rect, with_tidx, p);
       }
     }
-    if (valid) gpt::fwd_store(out + ((long long)t * kPix + lin) * 8, p);
+    if (valid) gpt::fwd_store(out + ((long long)t * kPix + pix) * 8, p);
   }
 }
 

@@ -19,6 +19,9 @@
 // faster than blend_fwd.cu. It is the function the JAX package offers
 // under that variable, ported as it is.
 //
+// The walk is gpt::fwd_walk with its warp cull (see blend_fwd.cu), called
+// by the whole block for one tile at a time.
+//
 // Bound on the H100: the same (pixel, instance) pairs as blend_fwd, so the
 // same f32 operation bound.
 #include "common.cuh"
@@ -40,7 +43,8 @@ blend_fwd_smt_kernel(const float* __restrict__ inst, long long P,
   const int tlast = (int)min(t0 + smt, (long long)num_tiles);
   for (int t = (int)t0; t < tlast; ++t) {
     float px, py;
-    gpt::tile_pixel(t, grid_x, lin, px, py);
+    gpt::WarpRect rect;
+    const int pix = gpt::fwd_tile_pixel(t, grid_x, lin, px, py, rect);
     const int start = tile_start[t];
     const int end = tile_end[t];
     gpt::FwdPixel p = gpt::fwd_pixel();
@@ -50,9 +54,9 @@ blend_fwd_smt_kernel(const float* __restrict__ inst, long long P,
       const int nb = min(kPix, end - base);
       gpt::stage_lane(s, inst, P, base, 0, nb, lin);
       __syncthreads();
-      gpt::fwd_walk(s, 0, nb, px, py, with_tidx, p);
+      gpt::fwd_walk(s, 0, nb, px, py, rect, with_tidx, p);
     }
-    gpt::fwd_store(out + ((long long)t * kPix + lin) * 8, p);
+    gpt::fwd_store(out + ((long long)t * kPix + pix) * 8, p);
     __syncthreads();  // the tile's last reads of s[][] before the next's
   }
 }

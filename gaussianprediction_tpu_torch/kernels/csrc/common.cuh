@@ -56,33 +56,55 @@ struct PairTerms {
   float dx, dy, G, alpha, test_T;
 };
 
+constexpr float kAlphaMin = (float)(1.0 / 255.0);  // alpha's skip test
+
 // The per-(pixel, instance) blend arithmetic, shared by the forward and
 // backward kernels so that the backward recomputes alpha, T and the done
 // latch bit for bit as the forward did. s[c * st] is the instance's
 // channel c (st: the stride of the SoA staged in shared memory), (px, py)
-// the pixel centre, T the pixel's transmittance before the instance. Every
-// operation is an _rn intrinsic (nvcc never contracts those into FMAs) in
-// the plain PyTorch version's order, and expf is the IEEE one (no fast
-// math). Returns false where the pair is skipped (invalid instance,
-// power > 0 or alpha < 1/255); else q.test_T = T * (1 - alpha), and the
-// caller latches the pixel done (this instance not contributing) where
-// q.test_T < kTEps. The early returns let the compiler branch straight to
-// the caller's `continue`, as the forward did before it shared this code.
-__device__ __forceinline__ bool pair_terms(const float* s, int st, float px,
-                                           float py, float T, PairTerms& q) {
-  if (!(s[11 * st] > 0.5f)) return false;
+// the pixel centre, T the pixel's transmittance. Every operation is an _rn
+// intrinsic (nvcc never contracts those into FMAs) in the plain PyTorch
+// version's order, and expf is the IEEE one (no fast math).
+
+// The pair's power; sets q.dx, q.dy.
+__device__ __forceinline__ float pair_power(const float* s, int st, float px,
+                                            float py, PairTerms& q) {
   q.dx = __fsub_rn(px, s[0 * st]);
   q.dy = __fsub_rn(py, s[1 * st]);
   const float qa = __fmul_rn(__fmul_rn(s[2 * st], q.dx), q.dx);
   const float qc = __fmul_rn(__fmul_rn(s[4 * st], q.dy), q.dy);
   const float qb = __fmul_rn(__fmul_rn(s[3 * st], q.dx), q.dy);
-  const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
-  if (!(power <= 0.0f)) return false;
+  return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)), qb);
+}
+
+// q.G and q.alpha from the pair's power.
+__device__ __forceinline__ void pair_opacity(const float* s, int st,
+                                             float power, PairTerms& q) {
   q.G = expf(power);
   const float a = __fmul_rn(s[5 * st], q.G);
   q.alpha = a > 0.99f ? 0.99f : a;  // NaN stays NaN
-  if (!(q.alpha >= (float)(1.0 / 255.0))) return false;
-  q.test_T = __fmul_rn(T, __fsub_rn(1.0f, q.alpha));
+}
+
+// T after a contributing pair of opacity alpha.
+__device__ __forceinline__ float pair_T(float T, float alpha) {
+  return __fmul_rn(T, __fsub_rn(1.0f, alpha));
+}
+
+// The backward's pair: returns false where the pair is skipped (invalid
+// instance, power > 0 or alpha < 1/255); else q.test_T = T * (1 - alpha)
+// with T the pixel's transmittance before the instance, and the caller
+// latches the pixel done (this instance not contributing) where q.test_T <
+// kTEps. The early returns let the compiler branch straight to the
+// caller's `continue`. The forward takes the same helpers without the
+// early returns (pair_alpha, fwd_apply).
+__device__ __forceinline__ bool pair_terms(const float* s, int st, float px,
+                                           float py, float T, PairTerms& q) {
+  if (!(s[11 * st] > 0.5f)) return false;
+  const float power = pair_power(s, st, px, py, q);
+  if (!(power <= 0.0f)) return false;
+  pair_opacity(s, st, power, q);
+  if (!(q.alpha >= kAlphaMin)) return false;
+  q.test_T = pair_T(T, q.alpha);
   return true;
 }
 
@@ -91,11 +113,12 @@ __device__ __forceinline__ bool pair_terms(const float* s, int st, float px,
 // up to 256 consecutive instances into a [12][256] shared array and walks
 // the lanes of a block that lie in one tile's segment, each thread one
 // pixel of that tile, in segment order. The walks below are the only
-// per-pixel code of the six kernels, so any launch geometry that hands
+// per-pixel code of the eight kernels, so any launch geometry that hands
 // each tile its segment in order gives the classic kernels' outputs bit for
 // bit.
 typedef float Staged[kBlendPix];  // s[c][i]: channel c of lane i
 
+// The backward kernels' pixel of thread lin: two rows of 16 a warp.
 __device__ __forceinline__ void tile_pixel(int t, int grid_x, int lin,
                                            float& px, float& py) {
   const int ty = t / grid_x;
@@ -147,27 +170,156 @@ __device__ __forceinline__ FwdPixel fwd_pixel() {
   return q;
 }
 
-// Blend lanes [lo, hi) of the staged block into pixel (px, py) in order;
-// stops at the done latch.
+// ------------------------------------- blend forward: the warp's footprint
+// The forward kernels map a tile's 256 threads to its pixels so that each
+// warp covers an 8 x 4 patch of pixel centres (integers), which the walk
+// culls instances against: a patch lets both the x and the y extent of a
+// footprint cull, where two rows of 16 let only y (on an H100 the patches
+// ran faster). The output row of each pixel stays at its own index
+// (row * 16 + column). The backward keeps tile_pixel's map: its warp sums
+// pair lanes by pixel, and their bits depend on it.
+struct WarpRect {
+  float x0, x1, y0, y1;  // the warp's pixel centres span [x0, x1] x [y0, y1]
+};
+
+// Thread lin's pixel (px, py) of tile t and its warp's rectangle; returns
+// the pixel's index in the tile. Warp w covers columns 8 (w & 1) .. +7 and
+// rows 4 (w >> 1) .. +3; its lane l sits at (l & 7, l >> 3) in them.
+__device__ __forceinline__ int fwd_tile_pixel(int t, int grid_x, int lin,
+                                              float& px, float& py,
+                                              WarpRect& r) {
+  const int ty = t / grid_x;
+  const int tx = t - ty * grid_x;
+  const int w = lin >> 5;
+  const int c0 = (w & 1) * 8, r0 = (w >> 1) * 4;
+  const int col = c0 + (lin & 7), row = r0 + ((lin & 31) >> 3);
+  r.x0 = (float)(tx * 16 + c0);
+  r.x1 = r.x0 + 7.0f;
+  r.y0 = (float)(ty * 16 + r0);
+  r.y1 = r.y0 + 3.0f;
+  px = (float)(tx * 16 + col);
+  py = (float)(ty * 16 + row);
+  return row * 16 + col;
+}
+
+// The cull's margins. A pixel passes pair_terms only if its f32 power
+// satisfies -2 power <= 2 ln(op / a_min), a_min = (float)(1/255), up to
+// the rounding of the opacity product (2^-24) and expf's error (at most
+// 2 ulp): kCullR2Abs (1e-4) on r2 = 2 ln(op / a_min) covers both, and the
+// f32 logf that computes r2 (1 ulp, at most ~1e-5 absolute for any finite
+// op). The f32 power (dx, dy and five rounded operations) differs from
+// the exact quadratic form Q at the pixel by at most 12 u S, u = 2^-24,
+// S = ca dx^2 + cc dy^2 <= K Q with K = (ca + cc)^2 / det; so Q <= r2 (1 +
+// 24 u K) while 12 u K <= 1/2, and the support is widened to Q <= R^2 =
+// r2 ((1 + kCullRel)^2 + 64 u K) (kCullThin = 64 u, a factor 2.7 of room),
+// its bounding box then by kCullPx pixels. The test's own f32 operations
+// (at most ~6 roundings on either side of a compare) are covered by
+// kCullRel's 2e-3 on R^2 many times over; det alone is taken in double,
+// where ca * cc and cb * cb are exact, because in f32 it cancels. No
+// instance is culled where K >= 1 / (2 kCullThin) (about 1.3e5: a
+// footprint that thin is rare), op <= kCullOpMin (an empty or point
+// support), det <= 1e-30 (not positive definite, or so small that f32
+// products underflow) or a channel read is not finite. f32 overflow in
+// pair_terms only ever fails a pair. The same test in double ran slower on
+// an H100 (56 registers against 40).
+constexpr float kCullOpMin = kAlphaMin * 1.001f;
+constexpr float kCullR2Abs = 1e-4f;
+constexpr float kCullRel2 = 1.002001f;  // (1 + kCullRel)^2, kCullRel = 1e-3
+constexpr float kCullThin = 64.0f / 16777216.0f;
+constexpr float kCullPx = 1e-2f;
+
+// Whether some pixel centre of rectangle r may pass pair_terms against
+// the instance whose channel c is s[c * st]: false only where none can
+// (an invalid instance, or one whose widened support box misses r). The
+// box's half extents are R sqrt(cc / det) and R sqrt(ca / det) (the
+// conic's inverse is the 2-d covariance); the test squares both sides.
+__device__ __forceinline__ bool warp_keeps(const float* s, int st,
+                                           const WarpRect& r) {
+  if (!(s[11 * st] > 0.5f)) return false;  // pair_terms rejects it first
+  const float mx = s[0], my = s[st], ca = s[2 * st], cb = s[3 * st],
+              cc = s[4 * st], op = s[5 * st];
+  // a NaN or inf channel makes the sum NaN or inf (as may a huge finite
+  // one: kept too)
+  if (!(fabsf(mx + my + ca + cb + cc + op) < 1e38f)) return true;
+  if (!(op > kCullOpMin) || !(ca > 0.0f)) return true;
+  const float det = (float)((double)ca * cc - (double)cb * cb);
+  if (!(det > 1e-30f)) return true;
+  const float tr = ca + cc;
+  const float thin = kCullThin * tr * tr;
+  if (!(2.0f * thin < det)) return true;
+  const float rr = (2.0f * logf(op / kAlphaMin) + kCullR2Abs) *
+                   (kCullRel2 + thin / det);  // R^2
+  const float dx = fmaxf(fmaxf(r.x0 - mx, mx - r.x1) - kCullPx, 0.0f);
+  const float dy = fmaxf(fmaxf(r.y0 - my, my - r.y1) - kCullPx, 0.0f);
+  return dx * dx * det <= rr * cc && dy * dy * det <= rr * ca;
+}
+
+// pair_terms' tests for an instance the cull kept (so valid > 0.5),
+// without its early returns: q.dx, q.dy, q.G and q.alpha have pair_terms'
+// bits where it returns true, and this returns true exactly there. With no
+// branch the walk evaluates two pairs side by side.
+__device__ __forceinline__ bool pair_alpha(const float* s, int st, float px,
+                                           float py, PairTerms& q) {
+  const float power = pair_power(s, st, px, py, q);
+  pair_opacity(s, st, power, q);
+  return power <= 0.0f && q.alpha >= kAlphaMin;
+}
+
+// Blend a passing pair (q from pair_alpha, staged lane i) into p: T's
+// step and the done latch as pair_terms and the backward take them, the
+// weight, the four sums and the top weight.
+__device__ __forceinline__ void fwd_apply(const Staged* s, int i,
+                                          const PairTerms& q, int with_tidx,
+                                          FwdPixel& p) {
+  const float test_T = pair_T(p.T, q.alpha);
+  if (test_T < kTEps) {
+    p.done = 1;
+    return;
+  }
+  const float w = __fmul_rn(q.alpha, p.T);
+  p.ar = __fadd_rn(p.ar, __fmul_rn(w, s[6][i]));
+  p.ag = __fadd_rn(p.ag, __fmul_rn(w, s[7][i]));
+  p.ab = __fadd_rn(p.ab, __fmul_rn(w, s[8][i]));
+  p.az = __fadd_rn(p.az, __fmul_rn(w, s[9][i]));
+  p.T = test_T;
+  if (with_tidx && w > p.wmax) {
+    p.wmax = w;
+    p.bgid = s[10][i];
+  }
+}
+
+// Blend lanes [lo, hi) of the staged block into pixel (px, py) in order,
+// up to the done latch. The warp takes the lanes 32 at a time: lane j
+// tests lane lo + 32 k + j against the warp's rectangle r (warp_keeps), a
+// ballot gathers the chunk's keep mask, and the warp walks its set bits in
+// order, so the pairs of a culled instance cost nothing. A culled pair is
+// one whose pair_terms would have returned false for every pixel of the
+// warp, which changes no state, so the outputs keep their bits. The set
+// bits go two at a time: both pairs' alpha first (independent of T), then
+// each applied in order, so two dependent chains overlap. The warp leaves
+// once all its pixels are done; a done lane still votes. Callers call
+// this warp-uniformly: lo and hi are the same for every thread of a tile,
+// and a warp never straddles two tiles (the ballots need whole warps).
 __device__ __forceinline__ void fwd_walk(const Staged* s, int lo, int hi,
-                                         float px, float py, int with_tidx,
+                                         float px, float py,
+                                         const WarpRect& r, int with_tidx,
                                          FwdPixel& p) {
-  for (int i = lo; i < hi && !p.done; ++i) {
-    PairTerms q;
-    if (!pair_terms(&s[0][i], kBlendPix, px, py, p.T, q)) continue;
-    if (q.test_T < kTEps) {
-      p.done = 1;
-      break;
-    }
-    const float w = __fmul_rn(q.alpha, p.T);
-    p.ar = __fadd_rn(p.ar, __fmul_rn(w, s[6][i]));
-    p.ag = __fadd_rn(p.ag, __fmul_rn(w, s[7][i]));
-    p.ab = __fadd_rn(p.ab, __fmul_rn(w, s[8][i]));
-    p.az = __fadd_rn(p.az, __fmul_rn(w, s[9][i]));
-    p.T = q.test_T;
-    if (with_tidx && w > p.wmax) {
-      p.wmax = w;
-      p.bgid = s[10][i];
+  const int lane = threadIdx.x & 31;
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    if (__all_sync(0xffffffffu, p.done)) return;
+    const int j = c0 + lane;
+    const bool keep = j < hi && warp_keeps(&s[0][j], kBlendPix, r);
+    unsigned m = __ballot_sync(0xffffffffu, keep);
+    while (m) {
+      const int i = c0 + __ffs(m) - 1;
+      m &= m - 1;
+      const int i2 = m ? c0 + __ffs(m) - 1 : -1;  // warp-uniform
+      m &= m - 1;
+      PairTerms a, b;
+      const bool ka = pair_alpha(&s[0][i], kBlendPix, px, py, a);
+      const bool kb = i2 >= 0 && pair_alpha(&s[0][i2], kBlendPix, px, py, b);
+      if (ka && !p.done) fwd_apply(s, i, a, with_tidx, p);
+      if (kb && !p.done) fwd_apply(s, i2, b, with_tidx, p);
     }
   }
 }

@@ -117,6 +117,95 @@ def _pixel_coords(grid_x, grid_y, device):
     return px.to(torch.float32), py.to(torch.float32)
 
 
+# ------------------------------------------------- the forward warp cull
+# The forward kernels give each warp an 8 x 4 patch of a tile's pixels,
+# test each instance against the patch's rectangle of pixel centres and
+# skip it for a warp where no pixel can pass the alpha test
+# (kernels/csrc/common.cuh: fwd_tile_pixel, warp_keeps, fwd_walk). The
+# outputs do not depend on it; the plain versions model it to count the
+# pairs it keeps (aux "warp_pairs_kept"), and the tests hold the model to
+# never culling a passing pair.
+WARPS = PIX // 32
+
+
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+# the kernels' margins (common.cuh), as the f32 values they compare with
+CULL_ALPHA_MIN = _f32(ALPHA_MIN)
+CULL_OP_MIN = _f32(CULL_ALPHA_MIN * _f32(1.001))
+CULL_R2_ABS = _f32(1e-4)
+CULL_REL2 = _f32(1.002001)        # (1 + 1e-3)^2
+CULL_THIN = 64.0 * 2.0 ** -24
+CULL_PX = _f32(1e-2)
+CULL_DET_MIN = _f32(1e-30)
+CULL_FINITE = _f32(1e38)
+
+
+def fwd_thread_pixels(device=None):
+    """[256] int64: the tile pixel (row * 16 + column) of each forward
+    thread; threads 32 w .. 32 w + 31 form warp w, columns 8 (w % 2) .. +7
+    and rows 4 (w // 2) .. +3 of the tile."""
+    lin = torch.arange(PIX, device=device)
+    w, lane = lin // 32, lin % 32
+    return ((w // 2) * 4 + lane // 8) * 16 + (w % 2) * 8 + lane % 8
+
+
+def warp_rects(grid_x: int, grid_y: int, device=None):
+    """(x0, x1, y0, y1), each [T, 8] float32: the span of each forward
+    warp's pixel centres in each tile."""
+    pix = fwd_thread_pixels(device).view(WARPS, 32)
+    col, row = pix % 16, pix // 16
+    tile = torch.arange(grid_x * grid_y, device=device)
+    tx = ((tile % grid_x) * 16)[:, None]
+    ty = ((tile // grid_x) * 16)[:, None]
+    return tuple((b + v).to(torch.float32) for b, v in (
+        (tx, col.amin(1)), (tx, col.amax(1)), (ty, row.amin(1)),
+        (ty, row.amax(1))))
+
+
+def warp_keep(ch, x0, x1, y0, y1):
+    """The kernels' cull test (common.cuh: warp_keeps), its operations in
+    the same f32 order and det in double: whether some pixel centre of
+    [x0, x1] x [y0, y1] may pass the alpha test against the instance with
+    channels ch ([16, ...] float32, broadcasting against the rectangle's
+    bounds). False only for an invalid instance or one whose support
+    ellipse Q <= 2 ln(op / a_min), widened by the margins, has a bounding
+    box that misses the rectangle; True wherever a channel read is not
+    finite, op <= CULL_OP_MIN, det <= 1e-30 or the conic is too thin for
+    the margins."""
+    mx, my, ca, cb, cc, op = (ch[c] for c in range(6))
+    det = (ca.double() * cc.double() - cb.double() * cb.double()).float()
+    tr = ca + cc
+    thin = CULL_THIN * tr * tr
+    always = ~((mx + my + ca + cb + cc + op).abs() < CULL_FINITE) \
+        | ~(op > CULL_OP_MIN) | ~(ca > 0.0) | ~(det > CULL_DET_MIN) \
+        | ~(2.0 * thin < det)
+    rr = (2.0 * torch.log(op / CULL_ALPHA_MIN) + CULL_R2_ABS) \
+        * (CULL_REL2 + thin / det)
+    dx = torch.clamp(torch.maximum(x0 - mx, mx - x1) - CULL_PX, min=0.0)
+    dy = torch.clamp(torch.maximum(y0 - my, my - y1) - CULL_PX, min=0.0)
+    inside = (dx * dx * det <= rr * cc) & (dy * dy * det <= rr * ca)
+    return (ch[C_VALID] > 0.5) & (always | inside)
+
+
+def fwd_warp_keep(inst, tile_start, tile_end, grid_x: int, grid_y: int):
+    """The cull over every entry of the tiles' segments, in order:
+    (tile, col, keep), tile and col [N] int64 (the entry's tile and
+    instance column), keep [N, 8] bool (whether warp w of that tile keeps
+    the instance, warp_keep)."""
+    dev = inst.device
+    start = tile_start.to(torch.int64)
+    seg = (tile_end.to(torch.int64) - start).clamp(min=0)
+    tile = torch.repeat_interleave(
+        torch.arange(grid_x * grid_y, device=dev), seg)
+    first = torch.cumsum(seg, 0) - seg
+    col = start[tile] + torch.arange(tile.shape[0], device=dev) - first[tile]
+    rects = (r[tile] for r in warp_rects(grid_x, grid_y, dev))
+    return tile, col, warp_keep(inst[:, col][:, :, None], *rects)
+
+
 def classic_schedule(start, end):
     """The classic walk: step r hands every tile its segment's instance of
     rank r. Each schedule yields, per step, (idx [T] int64: the instance
@@ -151,12 +240,21 @@ def blend_fwd_walk(inst, grid_x: int, grid_y: int, with_tidx: bool,
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
     flops = torch.zeros((), dtype=torch.int64, device=dev)
     insts = torch.zeros((), dtype=torch.int64, device=dev)
+    wpairs = torch.zeros((), dtype=torch.int64, device=dev)
+    wkept = torch.zeros((), dtype=torch.int64, device=dev)
+    if aux is not None:
+        rects = warp_rects(grid_x, grid_y, dev)
+        thread_pix = fwd_thread_pixels(dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     for k, (idx, live, pending) in enumerate(schedule):
         if k % 64 == 0 and k and bool((done | ~pending[:, None]).all()):
             break
         active = live[:, None] & ~done
         d = inst[:, idx.clamp(0, P - 1)][:, :, None]          # [16, T, 1]
+        if aux is not None:
+            warp_live = active[:, thread_pix].view(T, WARPS, 32).any(-1)
+            wpairs += warp_live.sum()
+            wkept += (warp_live & warp_keep(d, *rects)).sum()
         dx = px - d[C_MX]
         dy = py - d[C_MY]
         power = -0.5 * (d[C_CA] * dx * dx + d[C_CC] * dy * dy) \
@@ -190,6 +288,8 @@ def blend_fwd_walk(inst, grid_x: int, grid_y: int, with_tidx: bool,
         aux["pairs"] = int(pairs)
         aux["flops"] = int(flops)
         aux["instances"] = int(insts)
+        aux["warp_pairs"] = int(wpairs)
+        aux["warp_pairs_kept"] = int(wkept)
     return torch.stack(acc + [Tr, wmax, bgid, torch.zeros_like(Tr)], dim=-1)
 
 
@@ -208,7 +308,10 @@ def rasterize_binned_plain(inst, tile_start, tile_end, grid_x: int,
     for 1 - alpha and the T product where alpha >= 1/255, 9 for the
     weight and the four sums where it contributes; compares and clamps not
     counted, exp counted as one); "instances", the segment instances read
-    up to the rank at which every pixel of the tile is done."""
+    up to the rank at which every pixel of the tile is done;
+    "warp_pairs", the (warp, instance) pairs up to each forward warp's
+    last live pixel (fwd_thread_pixels), and
+    "warp_pairs_kept", those the kernels' cull keeps (warp_keep)."""
     sched = classic_schedule(tile_start.to(torch.int64),
                              tile_end.to(torch.int64))
     return blend_fwd_walk(inst, grid_x, grid_y, with_tidx, sched, aux)
@@ -274,7 +377,6 @@ def pixel_grads(out, g):
 
 
 SUB = 32   # instances per reduction sub-batch of the backward kernels
-WARPS = PIX // 32
 
 
 def _pixel_sums(x, sums: str):

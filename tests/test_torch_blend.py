@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401
-    crafted_stream, n, one_torch_thread, scene, t,
+    adversarial_stream, crafted_stream, n, one_torch_thread, scene, t,
 )
 
 from gaussianprediction_tpu.data.synthetic import orbit_camera
@@ -89,6 +89,7 @@ def test_blend_matches_pallas_kernel(case):
     ours = TR.rasterize_binned_plain(t(s.inst), t(s.tile_start),
                                      t(s.tile_end), GX, GY, True, aux=aux)
     assert aux["pairs"] > 0
+    assert 0 < aux["warp_pairs_kept"] < aux["warp_pairs"]
     # the wrapper takes the plain version for CPU tensors
     wrapped = TR.rasterize_binned(t(s.inst), t(s.tile_start),
                                   t(s.tile_end), GX, GY, True)
@@ -254,3 +255,42 @@ def test_backward_plain_sums_in_kernel_order():
     c = TBV.rasterize_binned_bwd_smt_plain(inst, ts, te, GX, GY, 3, dpix,
                                            sums="kernel")
     assert torch.equal(c.view(torch.int32), a.view(torch.int32))
+
+
+def _passing_pixels(inst, tile, col, grid_x, grid_y):
+    """[N, 256] bool: for the segment entry of each (tile, col), which of
+    its tile's pixels (by pixel index) pass the plain version's f32 tests
+    (valid, power <= 0, alpha >= 1/255), the done latch ignored."""
+    px, py = TR._pixel_coords(grid_x, grid_y, "cpu")
+    d = inst[:, col][:, :, None]
+    dx = px[tile] - d[TR.C_MX]
+    dy = py[tile] - d[TR.C_MY]
+    power = -0.5 * (d[TR.C_CA] * dx * dx + d[TR.C_CC] * dy * dy) \
+        - d[TR.C_CB] * dx * dy
+    alpha = torch.clamp(d[TR.C_OP] * torch.exp(power), max=TR.ALPHA_CLAMP)
+    return (d[TR.C_VALID] > 0.5) & (power <= 0.0) & (alpha >= TR.ALPHA_MIN)
+
+
+def test_fwd_warp_cull_keeps_every_passing_pair():
+    """The forward kernels skip an instance for a warp only where no pixel
+    of the warp passes the alpha test (ops/rasterize_kernels.py:warp_keep,
+    the plain model of common.cuh's warp_keeps). Held on crafted_stream's
+    instances and adversarial_stream's: support ellipses that end within
+    1e-3 px of a warp edge on either side (with the margins set to zero
+    the model drops some of their passing pairs), op one ulp either side
+    of 1/255, degenerate conics, non-finite channels, invalid instances
+    and far means. The cull must still skip a real share of the pairs."""
+    inst, ts, te, gx, gy = adversarial_stream(seed=3)
+    inst, ts, te = t(inst), t(ts), t(te)
+    tile, cols, keep = TR.fwd_warp_keep(inst, ts, te, gx, gy)
+    ok = _passing_pixels(inst, tile, cols, gx, gy)
+    need = ok[:, TR.fwd_thread_pixels()].view(-1, TR.WARPS, 32).any(-1)
+    assert int(need.sum()) > 1000
+    assert not (need & ~keep).any()
+    assert float(keep.float().mean()) < 0.6
+    ch = inst[:, cols].to(torch.float64)
+    valid = ch[TR.C_VALID] > 0.5
+    odd = ~torch.isfinite(ch[:6]).all(0) | (ch[TR.C_OP] <= TR.CULL_OP_MIN) \
+        | (ch[TR.C_CA] * ch[TR.C_CC] <= ch[TR.C_CB] ** 2)
+    assert int((valid & odd).sum()) >= 10 and int((~valid).sum()) >= 2
+    assert keep[valid & odd].all() and not keep[~valid].any()

@@ -143,3 +143,98 @@ def crafted_stream(counts, grid_x, seed, sigma=(0.5, 4.0),
     inst[10, :n] = rng.permutation(n)
     inst[11, :n] = rng.random(n) > 0.05
     return (inst, (ends - counts).astype(np.int32), ends.astype(np.int32))
+
+
+def adversarial_stream(seed=0, grid_x=2, grid_y=2):
+    """A blend input that tests the forward kernels' warp cull
+    (ops/rasterize_kernels.py:warp_keep) at its edges: each tile's segment
+    holds crafted_stream's random instances, then
+    - thin and round rotated footprints whose support ellipse
+      Q <= 2 ln(255 op) ends within 1e-3 px of a warp edge (columns 0, 7,
+      8, 15 and rows 0, 3, 4, 7, 8, 11, 12, 15 of the tile, the edges of
+      the warps' 8 x 4 patches, and rows 1 and 2 inside them),
+      on either side, its extreme point in line with a pixel centre;
+    - op one f32 ulp either side of (float)(1/255), and op 0.99 and 1.0,
+      centred on a pixel;
+    - conics with det = 0 and det < 0, huge ca and cc (1e30), NaN and inf
+      in the channels the cull reads, invalid instances, and means 1000 px
+      outside the tile.
+    Colours stay finite, so no NaN reaches a blended output. Returns
+    (inst [16, P] float32, tile_start, tile_end [T] int32, grid_x,
+    grid_y), numpy arrays and ints."""
+    rng = np.random.default_rng(seed)
+    T = grid_x * grid_y
+    a_min = float(np.float32(1.0 / 255.0))
+    base, _, _ = crafted_stream([300] * T, grid_x, seed, tail=0)
+    segs = []
+    for t in range(T):
+        ox, oy = (t % grid_x) * 16, (t // grid_x) * 16
+        cols = [base[:, t * 300:(t + 1) * 300]]
+        extra = []
+
+        def add(mx, my, ca, cb, cc, op, valid=1.0):
+            c = np.zeros(16, np.float64)
+            c[:6] = mx, my, ca, cb, cc, op
+            c[6:9] = rng.uniform(0.0, 1.0, 3)
+            c[9] = rng.uniform(1.0, 5.0)
+            c[11] = valid
+            extra.append(c)
+
+        for s1, s2 in ((12.0, 0.6), (4.0, 0.7), (1.0, 1.0)):
+            for axis, edges in ((0, (0, 7, 8, 15)),
+                                (1, (0, 1, 2, 3, 4, 7, 8, 11, 12, 15))):
+                for e in edges:
+                    for side in (1.0, -1.0):
+                        for delta in (1e-3, 1e-4, 0.0, -1e-4, -1e-3):
+                            th = rng.uniform(0.0, np.pi)
+                            op = rng.choice([0.02, 0.5, 0.999])
+                            c, s = np.cos(th), np.sin(th)
+                            i1, i2 = 1.0 / s1 ** 2, 1.0 / s2 ** 2
+                            ca = np.float32(c * c * i1 + s * s * i2)
+                            cb = np.float32(c * s * (i1 - i2))
+                            cc = np.float32(s * s * i1 + c * c * i2)
+                            ca, cb, cc = float(ca), float(cb), float(cc)
+                            det = ca * cc - cb * cb
+                            R = np.sqrt(2.0 * np.log(op / a_min))
+                            # the extreme point of the support along the
+                            # axis, from the mean, and its other coordinate
+                            if axis == 0:
+                                ext = R * np.sqrt(cc / det)
+                                other = -R * cb / np.sqrt(cc * det)
+                            else:
+                                ext = R * np.sqrt(ca / det)
+                                other = -R * cb / np.sqrt(ca * det)
+                            edge = (ox, oy)[axis] + e
+                            across = (oy, ox)[axis] + rng.integers(0, 16)
+                            m_ax = edge + side * (delta - ext)
+                            m_other = across - side * other
+                            mx, my = (m_ax, m_other) if axis == 0 else \
+                                (m_other, m_ax)
+                            add(mx, my, ca, cb, cc, op)
+        px, py = ox + rng.integers(0, 16, 2)
+        below = float(np.nextafter(np.float32(a_min), np.float32(0.0)))
+        above = float(np.nextafter(np.float32(a_min), np.float32(1.0)))
+        for op in (below, a_min, above, 0.99, 1.0):
+            add(px, py, 0.3, 0.05, 0.4, op)
+        add(px + 0.5, py, 1.0, 1.0, 1.0, 0.8)          # det = 0
+        add(px, py + 0.5, 0.2, 1.0, 0.3, 0.8)          # det < 0
+        add(px, py, 1e30, 0.0, 1e30, 0.8)
+        add(px + 0.25, py, 1e30, 1e29, 1e30, 0.8)
+        for k in range(6):
+            ch = [px + 0.3, py, 0.5, 0.1, 0.5, 0.8]
+            ch[k] = (np.nan, np.inf, -np.inf)[k % 3]
+            add(*ch)
+        add(px, py, 0.5, 0.0, 0.5, 0.8, valid=0.0)
+        add(px, py, 0.5, 0.0, 0.5, 0.8, valid=np.nan)
+        add(ox - 1000.0, oy + 8.0, 0.5, 0.0, 0.5, 0.9)
+        add(ox + 8.0, oy + 1000.0, 0.01, 0.0, 0.01, 0.9)
+        ex = np.stack(extra, axis=1).astype(np.float32)
+        ex[10] = np.arange(ex.shape[1]) + 1000 * (t + 1)
+        cols.append(ex)
+        seg = np.concatenate(cols, axis=1)
+        segs.append(seg[:, rng.permutation(seg.shape[1])])
+    counts = np.array([s.shape[1] for s in segs])
+    ends = np.cumsum(counts)
+    inst = np.ascontiguousarray(np.concatenate(segs, axis=1))
+    return (inst, (ends - counts).astype(np.int32), ends.astype(np.int32),
+            grid_x, grid_y)
