@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stage-1 eval render, its training steps of
-every stage and its Trainer loop on one NVIDIA H100.
+every stage, its Trainer loop and motion extrapolation on one NVIDIA
+H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -103,7 +104,33 @@ the run with a non-zero exit and no result line):
      classic blend: its final parameters equal the first run's bit for bit
      (within 1e-5 of each leaf's largest magnitude when its load re-probe
      chose another capacity multiplier);
- 20. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 20. motion extrapolation ("GCN") from the first Trainer's final stage-3
+     state and its scene, under the classic blend: keypoint trajectories
+     at the 23 timestamps (split at 0.8: 18 train, 5 test) on the card
+     and on the CPU (same noise draw) within 1e-5 of the largest |value|;
+     train_gcn at the D-NeRF recipe's width (input 10, output 1, linear
+     128, 6 stages, 101 epochs, batch 32, noise 0.1 over 100 epochs,
+     norm_rotation): the loss falling, a second run bit-identical; one
+     step on the card, on the CPU and on the CPU in f64 from one model
+     (loss within 1e-5 relative; each gradient leaf within max(1e-3, 4x
+     the CPU's f32 error against f64) of its largest magnitude, the
+     graph-convolution biases ahead of a batch norm left out: their exact
+     gradient is 0) and a profile of one step; the rollout over the test
+     timestamps on the card and the CPU (within max(1e-4, 4x the CPU's
+     f32 error against f64)) and
+     its mean keypoint error; render_kpts of the predicted frames at the
+     cameras of the test timestamps (n_dropped == 0, finite, blend_fwd
+     equal to its plain version bit for bit on the last frame's stream,
+     the cull share); evaluate_pairs of those frames (PSNR, SSIM,
+     MS-SSIM, D-SSIM, LPIPS from the seeded golden weights written under
+     build/), LPIPS on the golden pair within 2e-3 of the committed
+     goldens and on a rendered pair within 1e-4 of the CPU's;
+     render_video (the first three of those cameras, 2 frames a pair)
+     and render_train_sequence (three training times, one frozen view):
+     finite, n_dropped == 0; ms per timestamp, step, frame; the launches
+     of the three render entry points (counts set to 0 just before each)
+     added to rows stack, expand, interleave and blend_fwd;
+ 21. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
@@ -111,7 +138,8 @@ Usage:
   python3 chip_smoke.py --rehearse     # the same phases on the CPU at 2k
                                        # Gaussians and 128x128 (3 steps a
                                        # stage; the Trainer at 64x64 over
-                                       # 140 iterations), plain versions,
+                                       # 140 iterations, the GCN phase
+                                       # on its state), plain versions,
                                        # no result line
 """
 from __future__ import annotations
@@ -203,6 +231,18 @@ VARIANT_ENV = {
 SMT_ENV = VARIANT_ENV["smt"]   # the Trainer phase's blend
 FWD_KERNELS = ("stack", "expand", "interleave", "blend_fwd")
 EPS32 = 2.0 ** -24
+# the committed LPIPS goldens of tests/test_eval.py::TestLPIPSGolden
+LPIPS_GOLDEN = (0.02952139638364315, 0.019956454634666443)
+# the GCN phase's card-vs-CPU tolerances, in units of the largest |value|
+# of each gradient leaf and of the rollout, or 4x the CPU's own f32 error
+# against f64 where that is larger: the batch norms divide by
+# sqrt(var + 1e-5) over a handful of windows, and keypoints that barely
+# move give features of almost no variance there, so f32 roundoff grows
+# (the CPU rehearsal's deepest xyz blocks: 8e-2 of a leaf's magnitude)
+GCN_GRAD_TOL = 1e-3
+GCN_ROLLOUT_TOL = 1e-4
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
 
 
 def log(msg: str) -> None:
@@ -1482,8 +1522,8 @@ def trainer_phases(dev, seed: int, rehearse: bool, reps: int):
     width on a synthetic dynamic scene, under GPT_BLEND_SMT=4, through
     every stage and host event of a compressed schedule (trainer_schedule);
     then a second Trainer resumed from the checkpoint under the classic
-    blend, held to the first run's final parameters. Returns the kernel
-    launch counts of the run."""
+    blend, held to the first run's final parameters. Returns the first
+    Trainer (its final stage-3 state) and the scene."""
     import copy
     import shutil
     import tempfile
@@ -1553,7 +1593,7 @@ def trainer_phases(dev, seed: int, rehearse: bool, reps: int):
                 raise AssertionError("the resumed run differs beyond 1e-5")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return res["launches"]
+    return res["trainer"], info
 
 
 def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
@@ -1742,6 +1782,313 @@ def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
                 mult_at_ckpt=mult_at[6 * u], scatter=scatter["cap"])
 
 
+GCN_TIMES_SPLIT = 0.8        # train/test split of the timestamps (max_time)
+
+
+def lpips_golden_weights(path: str):
+    """The seeded full-size VGG16/Alex LPIPS weights of the JAX package's
+    golden test (tests/test_eval.py::TestLPIPSGolden, default_rng(20260820),
+    about 69 MB) written to `path`; returns its fixed input pair."""
+    from gaussianprediction_tpu_torch.eval.lpips import (
+        ALEX_CFG, VGG_CFG, VGG_TAPS,
+    )
+
+    rng = np.random.default_rng(20260820)
+    params = {}
+    cin = 3
+    vgg_out = [c for c in VGG_CFG if c != "M"]
+    for i, cout in enumerate(vgg_out):
+        params[f"vgg/conv{i}/w"] = rng.normal(
+            scale=0.05, size=(3, 3, cin, cout)).astype(np.float32)
+        params[f"vgg/conv{i}/b"] = rng.normal(
+            scale=0.05, size=(cout,)).astype(np.float32)
+        cin = cout
+    for k, c in enumerate([vgg_out[i] for i in VGG_TAPS]):
+        params[f"vgg/lin{k}"] = np.abs(rng.normal(
+            scale=0.1, size=(c,)).astype(np.float32))
+    cin = 3
+    for k_i, (cout, k, s, p) in enumerate(ALEX_CFG):
+        params[f"alex/conv{k_i}/w"] = rng.normal(
+            scale=0.05, size=(k, k, cin, cout)).astype(np.float32)
+        params[f"alex/conv{k_i}/b"] = rng.normal(
+            scale=0.05, size=(cout,)).astype(np.float32)
+        cin = cout
+    for k_i, (cout, *_r) in enumerate(ALEX_CFG):
+        params[f"alex/lin{k_i}"] = np.abs(rng.normal(
+            scale=0.1, size=(cout,)).astype(np.float32))
+    np.savez(path, **params)
+    a = (np.indices((64, 80)).sum(0)[..., None] % 17 / 16.0
+         * np.array([1.0, 0.7, 0.4])).astype(np.float32)
+    b = np.clip(a + 0.15 * np.sin(np.arange(64 * 80 * 3).reshape(64, 80, 3)
+                                  * 0.37), 0, 1).astype(np.float32)
+    return a, b
+
+
+def once_ms(fn, dev):
+    """(fn(), ms of that one call): CUDA events on the card, a host clock
+    on the CPU."""
+    if dev.type == "cuda":
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / max(float(np.abs(np.asarray(b)).max()), 1e-30))
+
+
+def gcn_phases(tr, info, dev, seed: int, rehearse: bool):
+    """Phase 'GCN': motion extrapolation from the Trainer's final stage-3
+    state and scene under the classic blend: keypoint trajectories, the
+    GCN trained at the D-NeRF recipe's width, the rollout over the test
+    timestamps, the keypoint-driven render of the predicted frames, their
+    metrics (LPIPS from the seeded golden weights), render_video and
+    render_train_sequence; each card result held to the CPU. Returns the
+    kernel launch counts of the three render entry points."""
+    import copy
+    import shutil
+    import tempfile
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.convert import gcn_to_arrays
+    from gaussianprediction_tpu_torch.eval import lpips as EL
+    from gaussianprediction_tpu_torch.eval import metrics as EM
+    from gaussianprediction_tpu_torch.eval.render import (
+        render_kpts, render_train_sequence, render_video,
+    )
+    from gaussianprediction_tpu_torch.motion import dataset as MD
+    from gaussianprediction_tpu_torch.motion import gcn_train as GT
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+
+    cfg, state, it, bg = tr.cfg, tr.state, tr.iteration, tr.bg
+    cpu = torch.device("cpu")
+    scpu = state.to(cpu)
+    launches = {}
+
+    def count(fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        sync(dev)
+        for k, v in kernels.launch_counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    with Phase("GCN: keypoint trajectories"), torch.no_grad():
+        train_t, test_t = MD.times_from_scene(info, GCN_TIMES_SPLIT)
+        traj, ms = once_ms(lambda: MD.extract_trajectories(
+            state, cfg, train_t, test_t, it), dev)
+        ref = MD.extract_trajectories(scpu, cfg, train_t, test_t, it)
+        err = max(rel_err(a, b) for a, b in zip(traj[:4], ref[:4]))
+        log(f"GCN: iteration {it}, {int(state.n_alive())} Gaussians and "
+            f"{traj.n_kpts} keypoints alive; {len(train_t)} train and "
+            f"{len(test_t)} test timestamps (split at {GCN_TIMES_SPLIT}); "
+            f"trajectories {ms:.3f} ms ({ms / len(train_t + test_t):.3f} "
+            f"ms a timestamp), card vs CPU {err:.3e} of the largest "
+            f"|value|")
+        if not err <= 1e-5:
+            raise AssertionError("trajectories: card and CPU differ")
+
+    gcfg = GT.GCNConfig(input_size=10, output_size=1, linear_size=128,
+                        num_stage=6, epochs=101, batch_size=32,
+                        noise_init=0.1, noise_step=100,
+                        norm_rotation=cfg.model.norm_rotation)
+    K = traj.n_kpts
+    with Phase("GCN: training"):
+        windows = MD.build_windows(traj, gcfg.input_size, gcfg.output_size,
+                                   "train")
+        n_win = len(windows.xyz_inputs)
+        bs = min(gcfg.batch_size, n_win)
+        steps = gcfg.epochs * (n_win // bs)
+        (model, hist), ms = once_ms(lambda: GT.train_gcn(
+            windows, K, gcfg, seed=seed, verbose=False, device=dev), dev)
+        model2, hist2 = GT.train_gcn(windows, K, gcfg, seed=seed,
+                                     verbose=False, device=dev)
+        a, b = gcn_to_arrays(model), gcn_to_arrays(model2)
+        same = hist == hist2 and all(bits_equal(a[k], b[k]) for k in a)
+        log(f"GCN: {n_win} windows of {K} keypoints, batch {bs}, "
+            f"{gcfg.epochs} epochs, {steps} steps: {ms:.3f} ms "
+            f"({ms / steps:.3f} ms a step); loss {hist[0]:.6f} -> "
+            f"{hist[-1]:.6f}; a second run bit-identical (params, batch-norm"
+            f" statistics, losses) {same}")
+        if not hist[-1] < hist[0]:
+            raise AssertionError("GCN loss did not fall")
+        if not same:
+            raise AssertionError("two GCN training runs differ")
+        # one step on the card and on the CPU (and in f64) from one model
+        batch = [x[:bs] for x in (windows.xyz_inputs, windows.rot_inputs,
+                                  windows.xyz_gt, windows.rot_gt)]
+        out = {}
+        for name, d, dt in (("card", dev, torch.float32),
+                            ("cpu", cpu, torch.float32),
+                            ("cpu64", cpu, torch.float64)):
+            m = GT.init_gcn(gcfg, K, seed, d).to(dt)
+            loss, grads = GT.train_step(
+                m, GT.init_adam(m), gcfg.lr,
+                *[torch.from_numpy(x).to(d, dt) for x in batch], gcfg)
+            out[name] = (float(loss), [g.cpu().double() for g in grads])
+        names = [k for k, _ in m.named_parameters()]
+        # per leaf, in units of its largest f64 magnitude; the biases of
+        # the graph convolutions that feed a batch norm are left out:
+        # their exact gradient is 0, the f32 ones roundoff
+        worst_card = worst_cpu = 0.0
+        fails = []
+        for k, gd, gc, g64 in zip(names, *(out[x][1] for x in
+                                           ("card", "cpu", "cpu64"))):
+            if k.split(".")[-2].startswith("gc") and k.endswith("bias"):
+                continue
+            scale = float(g64.abs().max())
+            e_card = float((gd - gc).abs().max()) / scale
+            e_cpu = float((gc - g64).abs().max()) / scale
+            worst_card, worst_cpu = max(worst_card, e_card), \
+                max(worst_cpu, e_cpu)
+            if not e_card <= max(GCN_GRAD_TOL, 4.0 * e_cpu):
+                fails.append((k, e_card, e_cpu))
+        l_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        log(f"GCN step card vs CPU: loss {out['card'][0]:.7f} vs "
+            f"{out['cpu'][0]:.7f} ({l_rel:.2e} relative; f64 "
+            f"{out['cpu64'][0]:.7f}); gradients within {worst_card:.2e} of"
+            f" a leaf's largest magnitude (the CPU's f32 gradients within "
+            f"{worst_cpu:.2e} of its f64 ones); leaves beyond max("
+            f"{GCN_GRAD_TOL}, 4 x the CPU's f32 error): {fails}")
+        if not l_rel <= 1e-5 or fails:
+            raise AssertionError("GCN step: card and CPU differ")
+        m = GT.init_gcn(gcfg, K, seed, dev)
+        opt = GT.init_adam(m)
+        bdev = [torch.from_numpy(x).to(dev) for x in batch]
+        profile(lambda: GT.train_step(m, opt, gcfg.lr, *bdev, gcfg), dev,
+                "one GCN training step", top=8)
+
+    with Phase("GCN: rollout"):
+        xw = traj.kpts_xyz_train[-gcfg.input_size:]
+        rw = traj.kpts_r_train[-gcfg.input_size:]
+        frames_n = len(test_t)
+        (kp, kr), ms = once_ms(lambda: GT.rollout(model, gcfg, xw, rw,
+                                                  frames_n), dev)
+        m_cpu = copy.deepcopy(model).to(cpu)
+        kp_c, kr_c = GT.rollout(m_cpu, gcfg, xw, rw, frames_n)
+        kp_d, kr_d = GT.rollout(m_cpu.double(), gcfg, xw, rw, frames_n)
+        err = max(rel_err(kp, kp_c), rel_err(kr, kr_c))
+        err64 = max(rel_err(kp_c, kp_d), rel_err(kr_c, kr_d))
+        pos = float(np.linalg.norm(kp - traj.kpts_xyz_test, axis=-1).mean())
+        log(f"GCN rollout: {frames_n} frames in {ms:.3f} ms "
+            f"({ms / frames_n:.3f} ms a frame); card vs CPU {err:.3e} of "
+            f"the largest |value| (the CPU's f32 vs its f64 {err64:.3e}); "
+            f"mean keypoint position error against "
+            f"the extracted test trajectories {pos:.5f}")
+        if not err <= max(GCN_ROLLOUT_TOL, 4.0 * err64):
+            raise AssertionError("GCN rollout: card and CPU differ")
+
+    # the cameras at the test timestamps (the scene's own test views sit
+    # inside the training times)
+    future = [c for c in sorted(info.train_cameras + info.test_cameras,
+                                key=lambda c: c.time)
+              if c.time >= GCN_TIMES_SPLIT]
+    size = future[0].width
+
+    def frames_ok(frames, stats, what):
+        bad = [i for i, f in enumerate(frames)
+               if f.shape != (size, size, 3) or not np.isfinite(f).all()]
+        if bad or any(stats["n_dropped"]):
+            raise AssertionError(f"{what}: bad frames {bad}, n_dropped "
+                                 f"{stats['n_dropped']}")
+
+    with Phase("GCN: render_kpts of the predicted frames"):
+        stats = {}
+        with Capture([(rk, "rasterize_binned")]) as cap:
+            frames = count(lambda: render_kpts(state, cfg, it, future, bg,
+                                               kp, kr, stats=stats))
+        frames_ok(frames, stats, "render_kpts")
+        with torch.no_grad():
+            (inst, ts, te, gx, gy, with_tidx), _ = \
+                cap.args["rasterize_binned"]
+            out = rk.rasterize_binned(inst, ts, te, gx, gy, with_tidx)
+            aux = {}
+            ref = rk.rasterize_binned_plain(inst, ts, te, gx, gy, with_tidx,
+                                            aux=aux)
+            same = bits_equal(out, ref)
+        log(f"render_kpts: {len(frames)} frames at {size}x{size}, ms a "
+            f"frame {[round(m, 3) for m in stats['ms']]}, n_dropped "
+            f"{stats['n_dropped']}; the last frame's stream: blend_fwd "
+            f"equal to its plain version bit for bit {same}; "
+            f"{cull_share(aux)}")
+        if not same:
+            raise AssertionError("blend_fwd disagrees on a predicted frame")
+
+    with Phase("GCN: metrics of the predicted frames (LPIPS on the "
+               "seeded weights)"):
+        gts = [c.load_image() for c in future]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        wdir = tempfile.mkdtemp(prefix="lpips_", dir=BUILD_DIR)
+        saved = os.environ.get("GPT_LPIPS_WEIGHTS")
+        try:
+            path = os.path.join(wdir, "lpips_golden.npz")
+            ga, gb = lpips_golden_weights(path)
+            os.environ["GPT_LPIPS_WEIGHTS"] = path
+            res, ms = once_ms(lambda: EM.evaluate_pairs(frames, gts,
+                                                        device=dev), dev)
+            mean = res["mean"]
+            lv, la = EL.try_load_lpips(dev)(ga, gb)
+            rv, ra = EL.try_load_lpips(dev)(frames[0], gts[0])
+            cv, ca = EL.try_load_lpips(cpu)(frames[0], gts[0])
+        finally:
+            if saved is None:
+                os.environ.pop("GPT_LPIPS_WEIGHTS", None)
+            else:
+                os.environ["GPT_LPIPS_WEIGHTS"] = saved
+            shutil.rmtree(wdir, ignore_errors=True)
+        log("GCN metrics of the predicted frames: " + ", ".join(
+            f"{k} {mean[k]}" for k in ("PSNR", "SSIM", "MS-SSIM", "D-SSIM",
+                                       "LPIPS-vgg", "LPIPS-alex"))
+            + f" ({ms:.3f} ms for {len(frames)} pairs)")
+        log(f"LPIPS on the golden pair: vgg {lv} (golden "
+            f"{LPIPS_GOLDEN[0]}), alex {la} (golden {LPIPS_GOLDEN[1]}); "
+            f"a rendered pair on the card vs the CPU: vgg {rv} vs {cv}, "
+            f"alex {ra} vs {ca}")
+        fails = []
+        for got, want, tol in ((lv, LPIPS_GOLDEN[0], 2e-3),
+                               (la, LPIPS_GOLDEN[1], 2e-3),
+                               (rv, cv, 1e-4), (ra, ca, 1e-4)):
+            if not abs(got - want) <= tol * abs(want):
+                fails.append((got, want, tol))
+        if not all(np.isfinite(mean[k]) for k in ("PSNR", "SSIM", "D-SSIM",
+                                                  "LPIPS-vgg")):
+            fails.append("a metric is not finite")
+        if not rehearse and mean["MS-SSIM"] is None:
+            fails.append("no MS-SSIM at 800x800")
+        if fails:
+            raise AssertionError(f"GCN metrics: {fails}")
+
+    with Phase("GCN: render_video and render_train_sequence"):
+        vstats, sstats = {}, {}
+        vframes = count(lambda: render_video(state, cfg, it, future[:3], bg,
+                                             interpolation=2, stats=vstats))
+        frames_ok(vframes, vstats, "render_video")
+        train_views = sorted(info.train_cameras, key=lambda c: c.time)
+        picks = [train_views[i] for i in (0, len(train_views) // 2, -1)]
+        sframes = count(lambda: render_train_sequence(
+            state, cfg, it, picks, info.test_cameras[0], bg, stats=sstats))
+        frames_ok(sframes, sstats, "render_train_sequence")
+        log(f"render_video: {len(vframes)} frames, ms a frame "
+            f"{[round(m, 3) for m in vstats['ms']]}; render_train_sequence:"
+            f" {len(sframes)} frames, ms a frame "
+            f"{[round(m, 3) for m in sstats['ms']]}; launches of the three "
+            f"render entry points {launches}")
+        if not rehearse:
+            missing = [k for k in FWD_KERNELS if not launches.get(k)]
+            if missing:
+                raise AssertionError(f"GCN phase: not launched {missing}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1883,7 +2230,10 @@ def main() -> int:
     res.update(sres)
     launches.update({k: slaunches.get(k, 0) for k in sres})
     device_ms.update(sdevice_ms)
-    trainer_phases(dev, args.seed, args.rehearse, reps)
+    tr, info = trainer_phases(dev, args.seed, args.rehearse, reps)
+    glaunches = gcn_phases(tr, info, dev, args.seed, args.rehearse)
+    for k in FWD_KERNELS:
+        launches[k] = launches.get(k, 0) + glaunches.get(k, 0)
 
     line = {"kernels": [
         {

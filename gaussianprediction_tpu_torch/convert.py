@@ -12,6 +12,10 @@ carries the JAX Adam state ({"m", "v", "step"}) across the same way.
 load_jax_checkpoint reads a .npz checkpoint of the JAX package directly:
 params, optimizer state, statistics and iteration. Arrays keep the JAX
 layout (the MLP's w is [fan_in, fan_out]), so nothing is transposed.
+gcn_from_arrays builds the port's motion-extrapolation GCN
+(models/gcn.py:GCNxyzr) from the JAX package's GCN params and batch-norm
+state, and gcn_to_arrays turns it back into the flat keys of the JAX GCN
+checkpoint (motion/gcn_train.py reads and writes that layout).
 """
 from __future__ import annotations
 
@@ -46,6 +50,24 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
         return out
 
     return listify(root)
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """unflatten's inverse: nested dicts and lists -> {"a/0/b": leaf},
+    the leaves as numpy arrays (tensors copied to the host); the JAX
+    package's train/checkpoint.py:_flatten layout."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = (tree.detach().cpu().numpy()
+                            if isinstance(tree, torch.Tensor)
+                            else np.asarray(tree))
+    return out
 
 
 def _to_tensor(x, device):
@@ -108,3 +130,59 @@ def load_jax_checkpoint(path: str, device=None):
     opt = under("opt/")
     opt_state = opt_state_from_arrays(opt, device) if opt else None
     return state, opt_state, int(meta["iteration"])
+
+
+def _gcn_tensors(model) -> Dict[str, torch.Tensor]:
+    """The port's GCNxyzr's parameters and batch-norm buffers under the
+    flat keys of the JAX package's GCN checkpoint (train/checkpoint.py:
+    _flatten of {"params": ..., "bn": ...}): params/xyz/gc1/weight,
+    params/xyz/blocks/0/bn1/scale, params/rot/out_mlp/1/w,
+    bn/xyz/bn1/mean, bn/rot/block0_bn2/var, ..."""
+    out = {f"params/{name.replace('.', '/')}": p
+           for name, p in model.named_parameters()}
+    for name, b in model.named_buffers():
+        net, *mid, stat = name.split(".")
+        if mid[0] == "blocks":          # blocks.i.bn1 -> block{i}_bn1
+            mid = [f"block{mid[1]}_{mid[2]}"]
+        out[f"bn/{net}/{'/'.join(mid)}/{stat}"] = b
+    return out
+
+
+def gcn_to_arrays(model) -> Dict[str, np.ndarray]:
+    """The port's GCNxyzr -> {flat JAX checkpoint key: numpy array}."""
+    return flatten(_gcn_tensors(model))
+
+
+def gcn_from_arrays(params: Dict[str, Any], bn_state: Dict[str, Any],
+                    device=None):
+    """The JAX package's GCN_xyzr tree (params {"xyz": ..., "rot": ...}
+    and bn_state {"xyz": {"bn1": {"mean", "var"}, "block0_bn1": ...},
+    ...}, nested with lists for blocks and out_mlp, or with flattened
+    "xyz/blocks/0/gc1/att" names) -> the port's GCNxyzr on a device. The
+    widths are read from the arrays' shapes."""
+    from gaussianprediction_tpu_torch.models.gcn import GCNxyzr
+
+    flat = flatten({"params": params, "bn": bn_state})
+    dev = resolve_device(device)
+    input_f, hidden_f = flat["params/xyz/gc1/weight"].shape
+    node_n = flat["params/xyz/gc1/att"].shape[0] // 3
+    no_mapping = "params/xyz/out_gc/weight" in flat
+    head = flat["params/xyz/out_gc/weight" if no_mapping
+                else "params/xyz/out_mlp/1/w"]
+    num_stage = len({k.split("/")[3] for k in flat
+                     if k.startswith("params/xyz/blocks/")})
+    model = GCNxyzr(input_f, hidden_f, head.shape[1], num_stage, node_n,
+                    no_mapping, generator=torch.Generator().manual_seed(0),
+                    device=dev)
+    targets = _gcn_tensors(model)
+    if set(flat) != set(targets):
+        raise ValueError("GCN tree keys differ from the model's: "
+                         f"{sorted(set(flat) ^ set(targets))}")
+    with torch.no_grad():
+        for k, dst in targets.items():
+            src = flat[k]
+            if src.shape != tuple(dst.shape):
+                raise ValueError(f"{k}: shape {src.shape}, the model's "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+    return model

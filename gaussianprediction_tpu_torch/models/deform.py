@@ -140,7 +140,8 @@ def knn_blend(w, rows, nn_idx):
     return _KnnBlend.apply(w, rows, nn_idx)
 
 
-def _apply_deltas(params, delta_xyz, delta_q):
+def apply_deltas(params, delta_xyz, delta_q):
+    """(xyz + Δxyz, normalised Δq ⊗ rotation, normalised)."""
     xyz = params["xyz"] + delta_xyz
     q = rotation_act(quat_mul(rotation_act(delta_q), params["rotation"]))
     return xyz, q
@@ -199,7 +200,7 @@ def deform_stage1(params, cfg: Config, state: GaussianState, t, iteration,
     )
     if cfg.model.norm_rotation:
         delta_q = rotation_act(delta_q)
-    xyz, q = _apply_deltas(params, delta_xyz, delta_q)
+    xyz, q = apply_deltas(params, delta_xyz, delta_q)
     return DeformOut(
         xyz=xyz, rotation=q, scaling=scaling_act(params["scaling"]),
         opacity=_lifecycle_opacity(params, cfg, t, t_pe, iteration),
@@ -208,17 +209,13 @@ def deform_stage1(params, cfg: Config, state: GaussianState, t, iteration,
     )
 
 
-def deform_stage23(params, cfg: Config, state: GaussianState, t, iteration,
-                   generator: Optional[torch.Generator] = None,
-                   noise=None) -> DeformOut:
-    """Stages 2/3: the deform MLP on the keypoints (their positions
-    jittered by an annealed N(0, 1) draw), blended onto each Gaussian by
-    its K nearest keypoints' softmax weights.
-
-    `noise` ([Ck, 3], N(0,1) before the anneal) is taken as given or drawn
-    from `generator`; past the anneal no noise is drawn. Dead keypoint
-    rows blend as zero motion and the identity rotation."""
-    nn_idx, w_xyz, w_r = blend_weights(params, cfg, state)
+def keypoint_motion(params, cfg: Config, state: GaussianState, t, iteration,
+                    generator: Optional[torch.Generator] = None, noise=None):
+    """The deform MLP on the keypoints (their positions jittered by an
+    annealed N(0, 1) draw): (Δxyz, Δq, t's positional encoding), Δxyz zero
+    on dead keypoint rows. `noise` ([Ck, 3], N(0,1) before the anneal) is
+    taken as given or drawn from `generator`; past the anneal no noise is
+    drawn."""
     t_pe = time_encode(cfg, t)
     sigma = float(linear_anneal(
         iteration - cfg.train.second_stage_iteration, 0.1,
@@ -239,13 +236,25 @@ def deform_stage23(params, cfg: Config, state: GaussianState, t, iteration,
         kpt_dq = rotation_act(kpt_dq)
     alive = state.kpt_alive[:, None]
     kpt_dxyz = torch.where(alive, kpt_dxyz, torch.zeros_like(kpt_dxyz))
+    return kpt_dxyz, kpt_dq, t_pe
+
+
+def deform_stage23(params, cfg: Config, state: GaussianState, t, iteration,
+                   generator: Optional[torch.Generator] = None,
+                   noise=None) -> DeformOut:
+    """Stages 2/3: the keypoints' motion (keypoint_motion), blended onto
+    each Gaussian by its K nearest keypoints' softmax weights. Dead
+    keypoint rows blend as zero motion and the identity rotation."""
+    nn_idx, w_xyz, w_r = blend_weights(params, cfg, state)
+    kpt_dxyz, kpt_dq, t_pe = keypoint_motion(params, cfg, state, t,
+                                             iteration, generator, noise)
     ident = torch.zeros_like(kpt_dq)
     ident[:, 0] = 1.0
-    kpt_dq_safe = torch.where(alive, kpt_dq, ident)
+    kpt_dq_safe = torch.where(state.kpt_alive[:, None], kpt_dq, ident)
 
     delta_xyz = knn_blend(w_xyz, kpt_dxyz, nn_idx)
     delta_q = knn_blend(w_r, kpt_dq_safe, nn_idx)
-    xyz, q = _apply_deltas(params, delta_xyz, delta_q)
+    xyz, q = apply_deltas(params, delta_xyz, delta_q)
     return DeformOut(
         xyz=xyz, rotation=q, scaling=scaling_act(params["scaling"]),
         opacity=_lifecycle_opacity(params, cfg, t, t_pe, iteration),

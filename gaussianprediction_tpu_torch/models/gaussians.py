@@ -51,6 +51,16 @@ class GaussianState:
     def replace(self, **changes) -> "GaussianState":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device) -> "GaussianState":
+        """The state (params, masks, statistics) on `device`: copies,
+        except of the tensors already there."""
+        from gaussianprediction_tpu_torch.train.optimizer import tree_map
+
+        moved = {f.name: getattr(self, f.name)
+                 for f in dataclasses.fields(self)}
+        return GaussianState(**tree_map(
+            lambda x: None if x is None else x.to(device), moved))
+
     @property
     def capacity(self) -> int:
         return self.params["xyz"].shape[0]

@@ -23,7 +23,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gaussianprediction_tpu_torch.convert import load_jax_checkpoint
+from gaussianprediction_tpu_torch.convert import (
+    flatten as _flatten, load_jax_checkpoint,
+)
 from gaussianprediction_tpu_torch.models.gaussians import (
     STATS, GaussianState,
 )
@@ -38,21 +40,6 @@ def jax_key_data(seed: int) -> np.ndarray:
     0 <= 2024 * seed < 2^32)."""
     x = 2024 * int(seed)
     return np.array([(x >> 32) & 0xFFFFFFFF, x & 0xFFFFFFFF], np.uint32)
-
-
-def _flatten(tree, prefix=""):
-    out = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}/"))
-    else:
-        out[prefix[:-1]] = (tree.detach().cpu().numpy()
-                            if isinstance(tree, torch.Tensor)
-                            else np.asarray(tree))
-    return out
 
 
 def save_checkpoint(path: str, state: GaussianState, opt_state,

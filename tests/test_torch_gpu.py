@@ -33,8 +33,15 @@ plain versions (bit for bit, both run on the card), on a random stream,
 a skewed one (one tile's segment of 100,003 instances) and one with
 empty tiles, the last among them. The Trainer runs 30 iterations of the `test` preset on the card
 across the 0 -> 1 transition, and its checkpoint loads into a second
-Trainer bit for bit. Whether a card is present is decided inside the
-`cuda_device` fixture; without one every test here skips.
+Trainer bit for bit. Motion extrapolation: one GCN training step on the
+card is held to the same step on the CPU (loss to 1e-5 relative, each
+gradient to 1e-3 of its leaf's largest magnitude, the biases of the graph
+convolutions that feed a batch norm left out: their exact gradient is 0),
+render_kpts on a stage-2 `test`-preset model to the CPU's frames within
+2e-5 (render_set's tolerance), and LPIPS on the card to the committed
+goldens of tests/test_eval.py::TestLPIPSGolden at rtol 2e-3. Whether a
+card is present is decided inside the `cuda_device` fixture; without one
+every test here skips.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch:
@@ -46,7 +53,8 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401
-    adversarial_stream, crafted_stream, cuda_device,
+    LPIPS_GOLDEN_ALEX, LPIPS_GOLDEN_VGG, adversarial_stream, crafted_stream,
+    cuda_device, lpips_golden_weights,
 )
 
 from gaussianprediction_tpu_torch.data.synthetic import (
@@ -611,3 +619,87 @@ def test_trainer_on_card_crosses_stage_1_and_round_trips(cuda_device,
                            _bits(b) if b.is_floating_point() else b)
     for k in ("alive", "kpt_alive") + ckpt.STATS:
         assert torch.equal(getattr(tr.state, k), getattr(tr2.state, k)), k
+
+
+def test_gcn_train_step_on_card_matches_cpu(cuda_device):
+    from gaussianprediction_tpu_torch.motion import gcn_train as GT
+
+    cfg = GT.GCNConfig(linear_size=64, num_stage=2, norm_rotation=True)
+    K, B = 20, 16
+    rng = np.random.default_rng(6)
+    xi, xg = (rng.normal(size=(B, f, K, 3)).astype(np.float32)
+              for f in (10, 1))
+    ri, rg = (rng.normal(size=(B, f, K, 4)).astype(np.float32)
+              for f in (10, 1))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model = GT.init_gcn(cfg, K, seed=3, device=dev)
+        loss, grads = GT.train_step(
+            model, GT.init_adam(model), 0.01,
+            *[torch.from_numpy(a).to(dev) for a in (xi, ri, xg, rg)], cfg)
+        names = [n for n, _ in model.named_parameters()]
+        out[dev.type] = (float(loss), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    for name, a, b in zip(names, gg, gc):
+        if name.split(".")[-2].startswith("gc") and name.endswith("bias"):
+            continue
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-3 * scale, name
+
+
+def test_render_kpts_on_card_matches_cpu(cuda_device):
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.eval.render import render_kpts
+    from gaussianprediction_tpu_torch.models.gaussians import create_from_pcd
+    from gaussianprediction_tpu_torch.motion.dataset import (
+        extract_trajectories,
+    )
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.loop import stage_transition
+
+    cfg = get_preset("test")
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (400, 3)).astype(np.float32)
+    cpu = torch.device("cpu")
+    state = create_from_pcd(cfg, pts, cols, torch.Generator().manual_seed(0),
+                            device=cpu)
+    params = dict(state.params)
+    params["motion_feature"] = 0.3 * torch.randn(
+        params["motion_feature"].shape,
+        generator=torch.Generator().manual_seed(1))
+    it = cfg.train.second_stage_iteration + 1
+    state, _ = stage_transition(state.replace(params=params),
+                                O.init_adam(params), cfg, it,
+                                torch.Generator().manual_seed(2))
+    it += cfg.train.xyz_noise_iteration
+    traj = extract_trajectories(state, cfg, [0.2, 0.5], [], it)
+    views = [orbit_camera(0.5 + i, width=64, height=64, time=0.2 + 0.3 * i)
+             for i in range(2)]
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    frames, stats = {}, {}
+    for dev in (cpu, cuda_device):
+        before = launch_counts["blend_fwd"]
+        frames[dev.type] = render_kpts(
+            state.to(dev), cfg, it, views, bg, traj.kpts_xyz_train,
+            traj.kpts_r_train, stats=stats)
+        if dev.type == "cuda":
+            assert launch_counts["blend_fwd"] == before + 2
+        assert stats["n_dropped"] == [0, 0]
+    for a, b in zip(frames["cuda"], frames["cpu"]):
+        assert float(np.abs(a - b).max()) <= 2e-5
+    assert float(np.ptp(frames["cpu"][0])) > 0.05
+
+
+def test_lpips_on_card_matches_goldens(cuda_device, tmp_path, monkeypatch):
+    from gaussianprediction_tpu_torch.eval.lpips import try_load_lpips
+
+    path = str(tmp_path / "lpips_det.npz")
+    a, b = lpips_golden_weights(path)
+    monkeypatch.setenv("GPT_LPIPS_WEIGHTS", path)
+    fn = try_load_lpips(cuda_device)
+    lv, la = fn(a, b)
+    np.testing.assert_allclose(lv, LPIPS_GOLDEN_VGG, rtol=2e-3)
+    np.testing.assert_allclose(la, LPIPS_GOLDEN_ALEX, rtol=2e-3)
+    assert fn(a, a) == (0.0, 0.0)

@@ -238,3 +238,47 @@ def adversarial_stream(seed=0, grid_x=2, grid_y=2):
     inst = np.ascontiguousarray(np.concatenate(segs, axis=1))
     return (inst, (ends - counts).astype(np.int32), ends.astype(np.int32),
             grid_x, grid_y)
+
+
+# the committed LPIPS goldens of tests/test_eval.py::TestLPIPSGolden
+LPIPS_GOLDEN_VGG = 0.02952139638364315
+LPIPS_GOLDEN_ALEX = 0.019956454634666443
+
+
+def lpips_golden_weights(path):
+    """Write the seeded full-size VGG16/Alex LPIPS weights of
+    tests/test_eval.py::TestLPIPSGolden (default_rng(20260820), about
+    69 MB) to `path`; returns its fixed input pair (a, b), [64, 80, 3]."""
+    from gaussianprediction_tpu_torch.eval.lpips import (
+        ALEX_CFG, VGG_CFG, VGG_TAPS,
+    )
+
+    rng = np.random.default_rng(20260820)
+    params = {}
+    cin = 3
+    vgg_out = [c for c in VGG_CFG if c != "M"]
+    for i, cout in enumerate(vgg_out):
+        params[f"vgg/conv{i}/w"] = rng.normal(
+            scale=0.05, size=(3, 3, cin, cout)).astype(np.float32)
+        params[f"vgg/conv{i}/b"] = rng.normal(
+            scale=0.05, size=(cout,)).astype(np.float32)
+        cin = cout
+    for k, c in enumerate([vgg_out[i] for i in VGG_TAPS]):
+        params[f"vgg/lin{k}"] = np.abs(rng.normal(
+            scale=0.1, size=(c,)).astype(np.float32))
+    cin = 3
+    for k_i, (cout, k, s, p) in enumerate(ALEX_CFG):
+        params[f"alex/conv{k_i}/w"] = rng.normal(
+            scale=0.05, size=(k, k, cin, cout)).astype(np.float32)
+        params[f"alex/conv{k_i}/b"] = rng.normal(
+            scale=0.05, size=(cout,)).astype(np.float32)
+        cin = cout
+    for k_i, (cout, *_r) in enumerate(ALEX_CFG):
+        params[f"alex/lin{k_i}"] = np.abs(rng.normal(
+            scale=0.1, size=(cout,)).astype(np.float32))
+    np.savez(path, **params)
+    a = (np.indices((64, 80)).sum(0)[..., None] % 17 / 16.0
+         * np.array([1.0, 0.7, 0.4])).astype(np.float32)
+    b = np.clip(a + 0.15 * np.sin(np.arange(64 * 80 * 3).reshape(64, 80, 3)
+                                  * 0.37), 0, 1).astype(np.float32)
+    return a, b
