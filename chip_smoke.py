@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stage-1 eval render, its training steps of
-every stage, its Trainer loop and motion extrapolation on one NVIDIA
-H100.
+every stage, its Trainer loop, motion extrapolation and its four CLIs on a
+scene on disk, on one NVIDIA H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -130,7 +130,27 @@ the run with a non-zero exit and no result line):
      finite, n_dropped == 0; ms per timestamp, step, frame; the launches
      of the three render entry points (counts set to 0 just before each)
      added to rows stack, expand, interleave and blend_fwd;
- 21. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 21. the user's path from a scene on disk ("CLI"): phase 18's scene (all
+     23 views, times i/22) written as a D-NeRF tree (transforms_train.json,
+     8-bit RGBA PNGs from the standard library's zlib with alpha 0 where
+     the render is exactly black, points3d.ply), loaded lazily and eagerly:
+     every image equal to the written bytes / 255 composited onto the
+     background bit for bit, the split at max_time 0.8 18 train / 5 test,
+     the PNG decoder named (native or PIL) and its host ms per view; then
+     in this process cli.train (the dnerf preset, max_time 0.8, a schedule
+     compressed to 600 iterations through train.py's own flags: cli_argv)
+     with every stage run, n_dropped 0 on every instance stream, the test
+     PSNR rising from the first report to the last, kernels #1-#7
+     launched, ms per iteration per stage and the share of iterations
+     that found their image not decoded yet; cli.eval --render_video
+     --render_train (results.json with a finite PSNR, ms per view, the
+     forward kernel equal to its plain version bit for bit on the last
+     render's stream); cli.train_gcn --metrics --predict_more (the GCN
+     checkpoint, the predicted frames' metrics, ms per predicted frame);
+     cli.show as a `python -m` subprocess; the three CLIs' launches added
+     to rows stack, expand, interleave, blend_fwd, blend_bwd and
+     scatter_add_sorted;
+ 22. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
@@ -139,8 +159,9 @@ Usage:
                                        # Gaussians and 128x128 (3 steps a
                                        # stage; the Trainer at 64x64 over
                                        # 140 iterations, the GCN phase
-                                       # on its state), plain versions,
-                                       # no result line
+                                       # on its state, the CLIs at the
+                                       # `test` preset over 60), plain
+                                       # versions, no result line
 """
 from __future__ import annotations
 
@@ -2089,6 +2110,294 @@ def gcn_phases(tr, info, dev, seed: int, rehearse: bool):
     return launches
 
 
+CLI_KERNELS = ("stack", "expand", "interleave", "blend_fwd", "blend_bwd",
+               "scatter_add_sorted")      # kernels #1-#7, as the CLIs run
+
+
+def cli_argv(scene: str, model: str, rehearse: bool):
+    """cli.train's argv: the dnerf preset (on the CPU rehearsal the `test`
+    preset: the dnerf capacity of 204,800 rows is too wide for the CPU),
+    max_time 0.8 and a schedule compressed through train.py's own flags
+    onto 6u iterations: stage 1 from u/2, stage 2 from 3u + 1, stage 3 from
+    4.5u + 1; densify at 2u and 3u (the preset's interval of 100 on the
+    card); keypoint growth every u/2 from 3.2u; reports at u/10, 3u and
+    6u; checkpoints at 3u and 6u, the PLY at 6u. The fields train.py has
+    no flag for (densification_interval, opacity_reset_interval) keep the
+    preset's values."""
+    u = 10 if rehearse else 100
+    return ["-s", scene, "-m", model,
+            "--preset", "test" if rehearse else "dnerf",
+            "--max_time", str(GCN_TIMES_SPLIT), "--iterations", str(6 * u),
+            "--jointly_iteration", str(u // 2),
+            "--second_stage_iteration", str(3 * u),
+            "--third_stage_iteration", str(9 * u // 2),
+            "--densify_from_iter", str(u), "--densify_until_iter",
+            str(3 * u + 1), "--position_lr_max_steps", str(4 * u),
+            "--adaptive_from_iter", str(u // 5), "--adaptive_interval",
+            str(u // 2), "--test_iterations", str(u // 10), str(3 * u),
+            str(6 * u), "--checkpoint_iterations", str(3 * u), str(6 * u),
+            "--save_iterations", str(6 * u)]
+
+
+def cli_phases(info, dev, seed: int, rehearse: bool):
+    """Phase 'CLI': the user's path from a scene on disk. Phase 18's
+    synthetic scene (all 23 views, times i/22) is written as a D-NeRF tree
+    (transforms_train.json, 8-bit RGBA PNGs written by the standard
+    library's zlib, alpha 0 where the render is exactly black, and
+    points3d.ply); loaded lazily and eagerly, every image must equal the
+    written bytes / 255 composited onto the background, bit for bit, and
+    the split at 0.8 must be 18 / 5. Then cli.train, cli.eval
+    (--render_video --render_train), cli.train_gcn (--metrics
+    --predict_more) run in this process, so the launch counts are shared,
+    and cli.show as a `python -m` subprocess. Returns the kernel launches
+    of train, eval and train_gcn."""
+    import shutil
+    import tempfile
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.cli import eval as CE
+    from gaussianprediction_tpu_torch.cli import train as CT
+    from gaussianprediction_tpu_torch.cli import train_gcn as CG
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.data import native
+    from gaussianprediction_tpu_torch.data.blender import (
+        write_nerf_synthetic,
+    )
+    from gaussianprediction_tpu_torch.data.scene import load_scene_info
+    from gaussianprediction_tpu_torch.eval import render as ER
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+    from gaussianprediction_tpu_torch.train import loop as L
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="gpt_cli_", dir=BUILD_DIR)
+    scene, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    cams = sorted(info.train_cameras + info.test_cameras, key=lambda c: c.time)
+    size = cams[0].width
+    launches = {}
+    streams = []                 # (what, n_dropped, n_total) of each stream
+
+    def note(what):
+        def fn(name, a, out):
+            st = out if isinstance(out, IS.InstanceStream) else out[0]
+            streams.append((what, st.n_dropped, st.n_total))
+        return fn
+
+    def counted(fn, what):
+        kernels.reset_launch_counts()
+        with Capture([(IS, "build_instances_fwd")], note(what)):
+            out = fn()
+        sync(dev)
+        got = dict(kernels.launch_counts)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        drops = [int(d) for w, d, _ in streams if w == what]
+        log(f"CLI {what}: launches {got}; {len(drops)} instance streams, "
+            f"n_dropped {sum(drops)} (largest {max(drops, default=0)})")
+        if any(drops):
+            raise AssertionError(f"CLI {what}: an instance stream dropped")
+        if not rehearse:
+            need = CLI_KERNELS if what == "train" else FWD_KERNELS
+            missing = [k for k in need if not got.get(k)]
+            if missing:
+                raise AssertionError(f"CLI {what}: not launched {missing}")
+        return out
+
+    saved_env = os.environ.pop("GPT_FORCE_CPU", None)
+    if rehearse:
+        os.environ["GPT_FORCE_CPU"] = "1"
+    try:
+        with Phase("CLI: write the scene as a D-NeRF tree"):
+            write_nerf_synthetic(scene, cams, info.points, info.colors)
+            n_bytes = sum(os.path.getsize(os.path.join(scene, "train", f))
+                          for f in os.listdir(os.path.join(scene, "train")))
+            log(f"CLI scene: {len(cams)} views at {size}x{size}, "
+                f"{n_bytes / 1e6:.1f} MB of PNGs, {len(info.points)} points "
+                f"in points3d.ply")
+
+        with Phase("CLI: the loader against the written bytes"):
+            cfg = get_preset("dnerf")
+            cfg.source_path, cfg.model.max_time = scene, GCN_TIMES_SPLIT
+            lazy = load_scene_info(cfg, lazy=True)
+            t0 = time.perf_counter()
+            eager = load_scene_info(cfg, lazy=False)
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            decode_ms = []
+            for c in lazy.train_cameras + lazy.test_cameras:
+                t0 = time.perf_counter()
+                c.load_image()
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+            bg = 1.0 if cfg.model.white_background else 0.0
+            bad = []
+            loaded = [lazy.train_cameras + lazy.test_cameras,
+                      eager.train_cameras + eager.test_cameras]
+            for i, src in enumerate(cams):
+                u8 = (np.clip(src.image, 0.0, 1.0) * 255).astype(np.uint8)
+                a = np.where((src.image == 0.0).all(-1, keepdims=True),
+                             np.float32(0.0), np.float32(1.0))
+                want = u8.astype(np.float32) / 255.0 * a + bg * (1.0 - a)
+                for how, cs in zip(("lazy", "eager"), loaded):
+                    if cs[i].time != src.time or not bits_equal(
+                            torch.from_numpy(cs[i].load_image()),
+                            torch.from_numpy(want)):
+                        bad.append((how, i))
+            split = (len(lazy.train_cameras), len(lazy.test_cameras))
+            transparent = float(np.mean([(c.image == 0.0).all(-1).mean()
+                                         for c in cams]))
+            log(f"CLI loader: decoder {'native' if native.available() else 'PIL'}"
+                f" (native build error: {native.build_error}); split at "
+                f"{GCN_TIMES_SPLIT}: {split[0]} train / {split[1]} test; "
+                f"images equal to the written bytes / 255 composited, bit "
+                f"for bit: {not bad} (lazy and eager, {len(cams)} views, "
+                f"{100 * transparent:.1f}% of the pixels transparent); host "
+                f"ms per decoded {size}x{size} view: median "
+                f"{float(np.median(decode_ms)):.3f} (lazy), "
+                f"{eager_ms / len(cams):.3f} (the eager load, a view)")
+            if bad or split != (18, 5):
+                raise AssertionError(f"CLI loader: {bad}, split {split}")
+            del lazy, eager, loaded
+
+        with Phase("CLI: cli.train"):
+            argv = cli_argv(scene, model, rehearse)
+            log("CLI train argv: " + " ".join(argv[4:]))
+            rec = []                       # (stage, start, end)
+            orig_one = L.Trainer.train_one
+
+            def timed_one(self, it):
+                if dev.type == "cuda":
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    m = orig_one(self, it)
+                    e1.record()
+                else:
+                    e0 = time.perf_counter()
+                    m = orig_one(self, it)
+                    e1 = time.perf_counter()
+                rec.append((L.stage_of(self.cfg, it), e0, e1))
+                return m
+
+            L.Trainer.train_one = timed_one
+            try:
+                t0 = time.perf_counter()
+                tr = counted(lambda: CT.main(argv), "train")
+                wall = time.perf_counter() - t0
+            finally:
+                L.Trainer.train_one = orig_one
+            per_stage = {}
+            for st, e0, e1 in rec:
+                per_stage.setdefault(st, []).append(
+                    e0.elapsed_time(e1) if dev.type == "cuda"
+                    else (e1 - e0) * 1e3)
+            reports = [h["eval"] for h in tr._history if "eval" in h]
+            psnrs = [(r["iter"], round(r["test_psnr"], 3)) for r in reports]
+            ds = tr.scene.decode_stats
+            log(f"CLI train: {tr.iteration} iterations in {wall:.1f} s; ms "
+                f"per iteration (CUDA events around train_one), "
+                + "; ".join(f"stage {k}: median {float(np.median(v)):.3f} "
+                            f"over {len(v)}"
+                            for k, v in sorted(per_stage.items()))
+                + f"; test PSNR at the reports {psnrs}; "
+                f"{int(tr.state.n_alive())} Gaussians, "
+                f"{int(tr.state.n_kpts())} keypoints; image decode: "
+                f"{ds['waited']} of {ds['draws']} iterations "
+                f"({100 * ds['waited'] / max(ds['draws'], 1):.1f}%) found "
+                f"their camera's image not decoded yet, "
+                f"{ds['wait_ms']:.1f} ms waited on the decode workers")
+            fails = []
+            if sorted(per_stage) != [0, 1, 2, 3]:
+                fails.append(f"stages {sorted(per_stage)}")
+            if not reports or not psnrs[-1][1] > psnrs[0][1]:
+                fails.append("the test PSNR did not rise")
+            for f in ("cfg.json", f"chkpnt{tr.iteration}.npz", "history.json",
+                      f"point_cloud/iteration_{tr.iteration}/point_cloud.ply"):
+                if not os.path.exists(os.path.join(model, f)):
+                    fails.append(f"missing {f}")
+            log(f"CLI train: checks failed {fails}")
+            if fails and not rehearse:
+                raise AssertionError(f"CLI train: {fails}")
+            del tr
+
+        with Phase("CLI: cli.eval --render_video --render_train"):
+            with Capture([(rk, "rasterize_binned")]) as cap:
+                res = counted(lambda: CE.main(
+                    ["-m", model, "--render_video", "--render_train"]),
+                    "eval")
+            with torch.no_grad():
+                (inst, ts, te, gx, gy, with_tidx), _ = \
+                    cap.args["rasterize_binned"]
+                out = rk.rasterize_binned(inst, ts, te, gx, gy, with_tidx)
+                ref = rk.rasterize_binned_plain(inst, ts, te, gx, gy,
+                                                with_tidx)
+                same = bits_equal(out, ref)
+            with open(os.path.join(res["out_dir"], "results.json")) as f:
+                metrics = json.load(f)
+            n_files = {d: len(os.listdir(os.path.join(res["out_dir"], d)))
+                       for d in sorted(os.listdir(res["out_dir"]))
+                       if os.path.isdir(os.path.join(res["out_dir"], d))}
+            log(f"CLI eval: {1e3 / res['fps']:.3f} ms per test view "
+                f"({res['fps']:.2f} FPS); results.json " + ", ".join(
+                    f"{k} {metrics[k]}" for k in ("PSNR", "SSIM", "MS-SSIM",
+                                                  "D-SSIM", "LPIPS-vgg"))
+                + f"; files {n_files}; the last render's stream: blend_fwd "
+                f"equal to its plain version bit for bit {same}")
+            if not np.isfinite(metrics["PSNR"]) or not same:
+                raise AssertionError("CLI eval: PSNR or blend_fwd")
+
+        with Phase("CLI: cli.train_gcn --metrics --predict_more"):
+            frame_ms = []
+            orig_kpts = ER.render_kpts
+
+            def timed_kpts(*a, **k):
+                stats = {}
+                frames = orig_kpts(*a, stats=stats, **k)
+                frame_ms.extend(stats["ms"])
+                return frames
+
+            ER.render_kpts = timed_kpts
+            try:
+                g = counted(lambda: CG.main(
+                    ["-m", model, "--num_stage", "6", "--metrics",
+                     "--predict_more", "--frames", "30"]), "train_gcn")
+            finally:
+                ER.render_kpts = orig_kpts
+            gdir = os.path.join(model, "gcn")
+            with open(os.path.join(gdir, "metrics_predicted",
+                                   "results.json")) as f:
+                pm = json.load(f)
+            hist = g["history"]
+            log(f"CLI train_gcn: loss {hist[0]:.6f} -> {hist[-1]:.6f}, "
+                f"{len(g['predicted'])} predicted frames and "
+                f"{len(frame_ms) - len(g['predicted'])} scored; ms per "
+                f"predicted frame: median {float(np.median(frame_ms)):.3f}; "
+                f"the predicted frames' metrics " + ", ".join(
+                    f"{k} {pm[k]}" for k in ("PSNR", "SSIM", "MS-SSIM",
+                                             "D-SSIM")))
+            if not os.path.exists(os.path.join(gdir, "gcn_ckpt.npz")) or \
+                    not np.isfinite(pm["PSNR"]):
+                raise AssertionError("CLI train_gcn: outputs")
+
+        with Phase("CLI: python -m gaussianprediction_tpu_torch.cli.show"):
+            r = subprocess.run(
+                [sys.executable, "-m", "gaussianprediction_tpu_torch.cli.show",
+                 "-r", model + "eval",
+                 os.path.join(gdir, "metrics_predicted")],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            for line in r.stdout.splitlines():
+                log("  " + line)
+            if r.returncode != 0 or "average" not in r.stdout:
+                raise AssertionError(f"cli.show: {r.returncode} "
+                                     f"{r.stderr[-2000:]}")
+    finally:
+        os.environ.pop("GPT_FORCE_CPU", None)
+        if saved_env is not None:
+            os.environ["GPT_FORCE_CPU"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"CLI: launches of train, eval and train_gcn {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2234,6 +2543,10 @@ def main() -> int:
     glaunches = gcn_phases(tr, info, dev, args.seed, args.rehearse)
     for k in FWD_KERNELS:
         launches[k] = launches.get(k, 0) + glaunches.get(k, 0)
+    del tr
+    claunches = cli_phases(info, dev, args.seed, args.rehearse)
+    for k in CLI_KERNELS:
+        launches[k] = launches.get(k, 0) + claunches.get(k, 0)
 
     line = {"kernels": [
         {

@@ -1,18 +1,21 @@
-"""Scene: camera lists, the camera extent and the training-camera order.
+"""Scene: dataset detection, camera lists, the camera extent and the
+training-camera order.
 
-Torch twin of gaussianprediction_tpu/data/scene.py (Scene,
-synthetic_scene_info). The order of the training cameras comes from
-Python's random.Random(seed) consumed exactly as the JAX package's
-sampler consumes it, so one seed gives one camera sequence in both
-packages. The JAX Scene also decodes the next cameras' images on a thread
-pool while the device steps; the port's scenes hold their images in
-memory (synthetic_scene_info), so it has no such prefetch. Loading a
-dataset from disk (load_scene_info) waits for the loaders (ROADMAP.md,
-Queue 1).
+Torch twin of gaussianprediction_tpu/data/scene.py (load_scene_info, Scene,
+synthetic_scene_info). load_scene_info detects the dataset by its marker
+files, in the JAX package's order (sparse/ -> COLMAP,
+transforms_train.json -> Blender/D-NeRF, dataset.json -> HyperNeRF). The
+order of the training cameras comes from Python's random.Random(seed)
+consumed exactly as the JAX package's sampler consumes it, so one seed
+gives one camera sequence in both packages, whatever the prefetch depth.
+Cameras loaded lazily are decoded ahead on a thread pool while the device
+steps.
 """
 from __future__ import annotations
 
+import os
 import random
+import time
 from typing import List
 
 import numpy as np
@@ -25,17 +28,50 @@ from gaussianprediction_tpu_torch.data.scene_types import (
 from gaussianprediction_tpu_torch.utils.camera import Camera
 
 
-def load_scene_info(cfg: Config) -> SceneInfo:
-    raise NotImplementedError(
-        "the dataset loaders (COLMAP, Blender/D-NeRF, HyperNeRF) are not "
-        "ported yet (ROADMAP.md, Queue 1 item 7); use synthetic_scene_info")
+def load_scene_info(cfg: Config, lazy: bool = False) -> SceneInfo:
+    """The reference's sceneLoadTypeCallbacks dispatch on
+    cfg.source_path."""
+    path = cfg.source_path
+    if os.path.exists(os.path.join(path, "sparse")):
+        from gaussianprediction_tpu_torch.data.colmap import (
+            read_colmap_scene,
+        )
+
+        return read_colmap_scene(path, eval_split=True, lazy=lazy)
+    if os.path.exists(os.path.join(path, "transforms_train.json")):
+        from gaussianprediction_tpu_torch.data.blender import (
+            read_nerf_synthetic,
+        )
+
+        return read_nerf_synthetic(
+            path, cfg.model.white_background, eval_split=True,
+            max_time=cfg.model.max_time, lazy=lazy,
+        )
+    if os.path.exists(os.path.join(path, "dataset.json")):
+        from gaussianprediction_tpu_torch.data.hypernerf import (
+            read_hyper_scene,
+        )
+
+        return read_hyper_scene(
+            path, max_time=cfg.model.max_time, ratio=cfg.ratio, lazy=lazy,
+        )
+    raise ValueError(f"Could not recognize scene type at {path}")
 
 
 class Scene:
     """Cameras, the camera extent and random-without-replacement epochs of
-    training cameras."""
+    training cameras.
 
-    def __init__(self, info: SceneInfo, seed: int = 0):
+    `prefetch` > 0 decodes the images of the next `prefetch` cameras of
+    the epoch on two worker threads while the device steps; the decoded
+    image stays on its Camera, so only the first epoch decodes.
+    next_train_camera waits for its camera's decode before it returns
+    it. `decode_stats` counts the draws ("draws"), those that found their
+    camera's image not decoded yet ("waited": the caller decodes it, or
+    waits on the worker that does) and the milliseconds spent waiting on
+    a worker ("wait_ms")."""
+
+    def __init__(self, info: SceneInfo, seed: int = 0, prefetch: int = 4):
         self.info = info
         self.train_cameras: List[Camera] = info.train_cameras
         self.test_cameras: List[Camera] = info.test_cameras
@@ -44,6 +80,15 @@ class Scene:
         self.cameras_extent = nerfpp_norm(info.train_cameras)["radius"]
         self._rng = random.Random(seed)
         self._order: List[int] = []
+        self._prefetch = prefetch
+        self._pool = None
+        if prefetch > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="scene-prefetch")
+        self._inflight: dict = {}
+        self.decode_stats = {"draws": 0, "waited": 0, "wait_ms": 0.0}
 
     def _refill_epoch(self):
         # the reference's pop-based sampler: stack.pop(randrange(len))
@@ -54,10 +99,37 @@ class Scene:
             order.append(stack.pop(self._rng.randrange(len(stack))))
         self._order = order
 
+    def _warm(self, idx: int):
+        cam = self.train_cameras[idx]
+        if cam.image is None and idx not in self._inflight:
+            self._inflight[idx] = self._pool.submit(cam.load_image)
+
     def next_train_camera(self) -> Camera:
         if not self._order:
             self._refill_epoch()
-        return self.train_cameras[self._order.pop(0)]
+        idx = self._order.pop(0)
+        cam = self.train_cameras[idx]
+        st = self.decode_stats
+        st["draws"] += 1
+        fut = self._inflight.pop(idx, None)
+        if fut is not None:
+            st["waited"] += not fut.done()
+            t0 = time.perf_counter()
+            fut.result()    # the decode finished (its image is on cam)
+            st["wait_ms"] += (time.perf_counter() - t0) * 1e3
+        elif cam.image is None:
+            st["waited"] += 1
+        if self._pool is not None:
+            for j in self._order[: self._prefetch]:
+                self._warm(j)
+        return cam
+
+    def close(self):
+        """Stop the decode workers (a decode in flight runs to its end)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+            self._inflight.clear()
 
 
 def synthetic_scene_info(n_points: int = 400, n_cams: int = 12,

@@ -88,21 +88,9 @@ def write_error_maps(renders, gts, deltas_dir: str):
             imageio.imwrite(os.path.join(deltas_dir, f"{idx:05d}.png"), u8)
 
 
-def load_image(path: str, resize_wh=None) -> np.ndarray:
-    """Decode to float32 [H, W, 3] in [0, 1] (PIL), resized to resize_wh
-    (width, height) when given."""
-    from PIL import Image
-
-    with Image.open(path) as img:
-        if resize_wh is not None:
-            img = img.resize(resize_wh)
-        arr = np.asarray(img, dtype=np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = np.repeat(arr[..., None], 3, axis=-1)
-    return np.ascontiguousarray(arr[..., :3])
-
-
 def _load_dir(d: str, files: List[str], resize_ratio: float):
+    from gaussianprediction_tpu_torch.data.image_io import load_image
+
     out = []
     for f in files:
         img = load_image(os.path.join(d, f))

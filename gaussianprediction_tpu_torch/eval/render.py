@@ -36,27 +36,29 @@ from gaussianprediction_tpu_torch.utils.camera import (
 
 
 def save_image(path: str, img: np.ndarray):
-    import imageio.v2 as imageio
+    """[H, W, C] in [0, 1] -> an 8-bit PNG (data/image_io.py:write_png)."""
+    from gaussianprediction_tpu_torch.data.image_io import write_png
 
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    imageio.imwrite(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
 
 def save_video(path: str, frames: List[np.ndarray], fps: int = 30):
-    """Frames [H, W, 3] in [0, 1] -> an mp4; where imageio cannot write
-    one (no ffmpeg backend), per-frame PNGs {path without .mp4}_{i:05d}.png
-    instead."""
-    import imageio.v2 as imageio
+    """Frames [H, W, 3] in [0, 1] -> an mp4 through imageio; where imageio
+    or its ffmpeg backend is absent, per-frame PNGs {path without
+    .mp4}_{i:05d}.png instead."""
+    from gaussianprediction_tpu_torch.data.image_io import write_png
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arr = np.stack(
         [(np.clip(f, 0, 1) * 255).astype(np.uint8) for f in frames])
     try:
+        import imageio.v2 as imageio
+
         imageio.mimwrite(path, arr, fps=fps)
-    except Exception:  # no ffmpeg: fall back to per-frame PNGs
+    except Exception:  # no imageio or no ffmpeg: fall back to PNGs
         base = os.path.splitext(path)[0]
         for i, f in enumerate(arr):
-            imageio.imwrite(f"{base}_{i:05d}.png", f)
+            write_png(f"{base}_{i:05d}.png", f)
 
 
 class _Frames:

@@ -14,7 +14,8 @@ documents which side it multiplies on.
 
 Cameras are host-side numpy objects; `to_device_dict` produces the small
 dict of tensors consumed by the render and train steps. A copy of the JAX
-package's utils/camera.py, apart from that method and load_image.
+package's utils/camera.py, apart from that method, the `background` field
+and load_image.
 """
 from __future__ import annotations
 
@@ -92,6 +93,9 @@ class Camera:
     trans: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
     scale: float = 1.0
     image_path: Optional[str] = None
+    # set by the Blender loader: image_path is RGBA, composited onto this
+    # background value when decoded
+    background: Optional[float] = None
 
     def __post_init__(self):
         V = world_to_view(self.R, self.T, self.trans, self.scale)
@@ -132,15 +136,21 @@ class Camera:
         }
 
     def load_image(self) -> np.ndarray:
-        """Return the gt image, decoding lazily from image_path if needed
-        (float32 [H, W, 3] in [0, 1], as the JAX package's PIL path)."""
+        """Return the gt image, decoding it from image_path on first use
+        (data/image_io.py: float32 [H, W, 3] in [0, 1]). Where `background`
+        is set, the decode composites the RGBA file onto it, so that a
+        lazily loaded Blender camera holds the image the eager load gives.
+        The JAX package's lazy camera keeps RGB and drops the alpha there
+        (its eager load composites): a difference of the reference that
+        the port does not copy."""
         if self.image is None:
-            from PIL import Image
+            from gaussianprediction_tpu_torch.data import image_io
 
-            arr = np.asarray(Image.open(self.image_path), np.float32) / 255.0
-            if arr.ndim == 2:
-                arr = np.repeat(arr[..., None], 3, axis=-1)
-            self.image = np.ascontiguousarray(arr[..., :3])
+            self.image = (
+                image_io.load_image(self.image_path)
+                if self.background is None else
+                image_io.load_image_composited(self.image_path,
+                                               self.background))
         return self.image
 
 

@@ -703,3 +703,58 @@ def test_lpips_on_card_matches_goldens(cuda_device, tmp_path, monkeypatch):
     np.testing.assert_allclose(lv, LPIPS_GOLDEN_VGG, rtol=2e-3)
     np.testing.assert_allclose(la, LPIPS_GOLDEN_ALEX, rtol=2e-3)
     assert fn(a, a) == (0.0, 0.0)
+
+
+def test_cli_train_then_eval_on_card(cuda_device, tmp_path, monkeypatch):
+    """cli.train -> cli.eval on a 32x32 D-NeRF tree on disk, on the card
+    (no GPT_FORCE_CPU): the state lives on the card, the forward and
+    backward kernels launch, and results.json holds a finite PSNR."""
+    import json
+    import os
+
+    from gaussianprediction_tpu_torch.cli import eval as CE
+    from gaussianprediction_tpu_torch.cli import train as CT
+    from gaussianprediction_tpu_torch.data.blender import (
+        write_nerf_synthetic,
+    )
+    from gaussianprediction_tpu_torch.data.scene import synthetic_scene_info
+
+    monkeypatch.delenv("GPT_FORCE_CPU", raising=False)
+    info = synthetic_scene_info(n_points=80, n_cams=12, n_test=0, width=32,
+                                height=32, dynamic=True, device=cuda_device)
+    scene, model = str(tmp_path / "scene"), str(tmp_path / "model")
+    write_nerf_synthetic(scene, info.train_cameras, info.points,
+                         info.colors)
+    before = dict(launch_counts)
+    tr = CT.main(["-s", scene, "-m", model, "--preset", "test",
+                  "--iterations", "40", "--max_time", "0.75",
+                  "--test_iterations", "40"])
+    torch.cuda.synchronize()
+    assert tr.device.type == "cuda" and tr.iteration == 40
+    for k in ("stack", "expand", "interleave", "blend_fwd", "blend_bwd"):
+        assert launch_counts[k] > before.get(k, 0), k
+    res = CE.main(["-m", model])
+    with open(os.path.join(res["out_dir"], "results.json")) as f:
+        psnr = json.load(f)["PSNR"]
+    assert np.isfinite(psnr) and psnr > 5
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P"])
+def test_native_png_decoder_equals_pil(cuda_device, tmp_path, mode):
+    """On the card's machine: the port's native decoder builds and gives
+    PIL's floats (byte / 255) bit for bit, where PIL is installed."""
+    Image = pytest.importorskip("PIL.Image")
+    from gaussianprediction_tpu_torch.data import native
+
+    assert native.available(), native.build_error
+    c = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4, "P": 1}[mode]
+    arr = np.random.default_rng(2).integers(0, 256, (21, 17, c), np.uint8)
+    img = Image.fromarray(arr[..., 0] if c == 1 else arr,
+                          "L" if mode == "P" else mode)
+    if mode == "P":
+        img = img.convert("P")
+    p = str(tmp_path / f"{mode}.png")
+    img.save(p)
+    for channels, conv in ((3, "RGB"), (4, "RGBA")):
+        want = np.asarray(Image.open(p).convert(conv), np.float32) / 255.0
+        np.testing.assert_array_equal(native.decode_png(p, channels), want)

@@ -366,5 +366,6 @@ def test_unported_paths_raise(jinfo):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tr.run(iterations=2)
         assert tr.iteration == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the loaders are ported: a directory that holds no scene is refused
+    with pytest.raises(ValueError, match="Could not recognize scene type"):
         load_scene_info(get_preset("test"))
