@@ -83,6 +83,23 @@ the run with a non-zero exit and no result line):
      and the gathers by name), then the encoder's gather (and the 2-d
      index_select it replaces, checked equal) and the table gradient's
      stable sort, each timed alone with CUDA events;
+ 17b. the weight encoders (fourier and brick beside the hash grid) from
+     phase 13's stage-1 state: each with a seeded weight model through the
+     1->2 transition and 4 stage-2 steps (finite loss, grads and params,
+     n_dropped == 0, one step run twice bit-identical, ms per step side by
+     side; #7 launched once a brick step, never a fourier one); the brick
+     encoder's first step's scatter_add_sorted inputs (cell-granular keys:
+     M = 26,214,400 contributions into 760,000-odd bricks x 64 cells)
+     held as in phase 14 (that row of the kernels line is
+     scatter_add_sorted_brick); distill_weight_init, 20 steps with the
+     hash grid and the brick grid: the loss falling, a second run
+     bit-identical; transition_diagnostics on phase 13's transition
+     state (the first view as its test view): every value finite, all
+     printed; the quality tool (tools/quality_proxy.py) at the protocol's
+     width (256x256, 55 + 5 views, 2000 points), stage1 and hashgrid arms
+     over 600 iterations: the test PSNR rising from the first report to
+     the last; the launches of the timed steps and of the tool added to
+     the kernels line's rows;
  18. the Trainer (train/loop.py) at the dnerf preset's full width under
      GPT_BLEND_SMT=4: a synthetic dynamic scene at 800x800 (100,000
      ground-truth Gaussians, 20 train and 3 test views) and run() over a
@@ -187,6 +204,8 @@ REPLACES = {
     "cumsum_channels": "gaussianprediction_tpu/ops/scan_pallas.py:84",
     "cumsum_rows": "gaussianprediction_tpu/ops/scan_pallas.py:49",
     "scatter_add_sorted": "gaussianprediction_tpu/ops/hashgrid_pallas.py:49",
+    "scatter_add_sorted_brick":
+        "gaussianprediction_tpu/ops/hashgrid_pallas.py:49",
     "blend_fwd_flat": "gaussianprediction_tpu/ops/rasterize_pallas.py:1458",
     "blend_bwd_flat": "gaussianprediction_tpu/ops/rasterize_pallas.py:1533",
     "blend_fwd_mt": "gaussianprediction_tpu/ops/rasterize_pallas.py:1038",
@@ -205,6 +224,8 @@ SOURCES = {
         "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
     "cumsum_rows": "gaussianprediction_tpu_torch/kernels/csrc/cumsum_rows.cu",
     "scatter_add_sorted":
+        "gaussianprediction_tpu_torch/kernels/csrc/scatter_add_sorted.cu",
+    "scatter_add_sorted_brick":
         "gaussianprediction_tpu_torch/kernels/csrc/scatter_add_sorted.cu",
     "blend_fwd_flat":
         "gaussianprediction_tpu_torch/kernels/csrc/blend_fwd_flat.cu",
@@ -232,6 +253,8 @@ DEVICE_NAMES = {
     "cumsum_channels": SCAN_FUNCS,
     "cumsum_rows": SCAN_FUNCS,
     "scatter_add_sorted": ("scatter_tiles_kernel", "scatter_carries_kernel"),
+    "scatter_add_sorted_brick": ("scatter_tiles_kernel",
+                                 "scatter_carries_kernel"),
     "blend_fwd_flat": ("blend_fwd_flat_kernel",),
     "blend_bwd_flat": ("blend_bwd_flat_kernel",),
     "blend_fwd_mt": ("blend_fwd_mt_kernel",),
@@ -1413,6 +1436,7 @@ def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
                                              device=dev)
         state = state.replace(params=params, kpt_alive=torch.zeros(
             (Ck,), dtype=torch.bool, device=dev))
+        pre = state
         state, opt = stage_transition(state, opt, cfg, it2,
                                       generator=gen())
         sync(dev)
@@ -1436,6 +1460,8 @@ def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
             f"{cfg.model.capacity_multiplier}")
         step2 = make_train_step(cfg, 2, size, size, extent, sh, 50, bg_t)
         step3 = make_train_step(cfg, 3, size, size, extent, sh, 50, bg_t)
+        # the encoders phase starts from the same stage-1 state
+        ctx.update(s2_cfg=cfg, s2_pre=pre, s2_trans=state, s2_opt=opt)
 
     with Phase("first stage-2 step: scatter_add_sorted vs plain version"):
         with Capture([(HK, "scatter_add_sorted")]) as cap:
@@ -1509,6 +1535,206 @@ def stage23_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
             f"gradient's stable sort of {list(kl.shape)} int32 keys: "
             f"{t_sort:.4f} ms")
     return res, launches, {"scatter_add_sorted": dm["scatter_add_sorted"]}
+
+
+def encoder_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
+    """Phase 17b: the fourier and brick weight encoders at the dnerf width
+    from phase 13's stage-1 state, beside the hash grid's: for each a
+    seeded weight model, the 1->2 transition and 4 stage-2 steps (finite,
+    n_dropped 0, a step run twice bit-identical, ms per step); #7 on the
+    brick stream held to its plain version as in phase 14;
+    distill_weight_init (20 steps) with each table encoder, the loss
+    falling and a second run bit-identical; transition_diagnostics on phase
+    13's transition state; the quality tool at the protocol's width
+    (stage1 and hashgrid arms over 600 iterations) with the test PSNR
+    rising. Returns (res, launches, device_ms): the brick stream's row of
+    the kernels line, and the launches of the timed steps and the quality
+    tool (counts set to 0 just before each, read just after) by row."""
+    import copy
+    import shutil
+    from types import SimpleNamespace
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.models.gaussians import weight_model
+    from gaussianprediction_tpu_torch.ops import hashgrid as HG
+    from gaussianprediction_tpu_torch.ops import hashgrid_kernels as HK
+    from gaussianprediction_tpu_torch.tools import quality_proxy as TQ
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.diag import (
+        transition_diagnostics,
+    )
+    from gaussianprediction_tpu_torch.train.loop import (
+        distill_weight_init, stage_transition,
+    )
+    from gaussianprediction_tpu_torch.train.step import make_train_step
+
+    base_cfg, pre, opt = ctx["s2_cfg"], ctx["s2_pre"], ctx["s2_opt"]
+    cam, gt, t, bg_t, gen = ctx["cam"], ctx["gt"], ctx["t"], ctx["bg_t"], \
+        ctx["gen"]
+    size = gt.shape[0]
+    it2 = base_cfg.train.second_stage_iteration + 1
+    nsteps = 2 if rehearse else 4
+    to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    res, step_ms, trans = {}, {}, {}
+    launches = {}   # this phase's launches, #7's brick stream on its row
+
+    def add_launches(got, enc):
+        for k, v in got.items():
+            row = "scatter_add_sorted_brick" if (
+                enc == "brick" and k == "scatter_add_sorted") else k
+            launches[row] = launches.get(row, 0) + v
+
+    with Phase("encoders: fourier and brick beside the hash grid, stage 2"):
+        for enc in ("hashgrid", "fourier", "brick"):
+            cfg = copy.deepcopy(base_cfg)
+            cfg.model.weight_encoder = enc
+            if rehearse:    # 2^12 bricks a hashed level, not 2^16, here
+                cfg.model.hash_log2_Tb = 12
+            tables, wmlp = weight_model(cfg, np.random.default_rng(seed + 7))
+            params = {k: v for k, v in pre.params.items()
+                      if k != "hash_tables"}
+            params["weight_mlp"] = [{k: to(v) for k, v in layer.items()}
+                                    for layer in wmlp]
+            if tables is not None:
+                params["hash_tables"] = {k: to(v) for k, v in tables.items()}
+            st = pre.replace(params=params)
+            st, op = stage_transition(st, O.init_adam(st.params), cfg, it2,
+                                      generator=gen())
+            if int(st.n_kpts()) != cfg.model.max_points:
+                raise AssertionError(f"{enc}: the transition failed")
+            trans[enc] = (cfg, st)
+            step = make_train_step(cfg, 2, size, size, ctx["extent"],
+                                   cfg.model.sh_degree, 50, bg_t)
+            with Capture([(HK, "scatter_add_sorted")]) as cap:
+                st, op, m = checked(step(st, op, cam, gt, t, it2, gen()),
+                                    f"{enc}: first stage-2 step")
+            sync(dev)
+            if enc == "brick":
+                (keys, vals, n_slots), _ = cap.args["scatter_add_sorted"]
+                tb = sum(v.shape[0] for v in tables.values())
+                log(f"brick: {tb} bricks of 64 cells x F "
+                    f"{cfg.model.hash_features}: M {keys.shape[0]} "
+                    f"contributions into {n_slots} cell slots "
+                    f"({vals.numel()} values, {vals.shape[0] * n_slots} "
+                    f"outputs; int32 limit {2 ** 31 - 1})")
+                with torch.no_grad():
+                    r = check_scatter_kernel(cap, dev, reps, "brick stream")
+                res["scatter_add_sorted_brick"] = \
+                    r["scatter_add_sorted"]
+            elif "scatter_add_sorted" in cap.args and enc == "fourier":
+                raise AssertionError("fourier: the table gradient ran")
+            kernels.reset_launch_counts()
+            ms = []
+            for k in range(nsteps):
+                if dev.type == "cuda":
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    out = step(st, op, cam, gt, t, it2 + 1 + k, gen())
+                    e1.record()
+                    e1.synchronize()
+                    ms.append(e0.elapsed_time(e1))
+                else:
+                    t0 = time.perf_counter()
+                    out = step(st, op, cam, gt, t, it2 + 1 + k, gen())
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                st, op, m = checked(out, f"{enc}: stage-2 step {k}")
+            sync(dev)
+            got = dict(kernels.launch_counts)
+            want = nsteps if enc != "fourier" else 0
+            if not rehearse and got.get("scatter_add_sorted", 0) != want:
+                raise AssertionError(f"{enc}: scatter_add_sorted launched "
+                                     f"{got.get('scatter_add_sorted', 0)} "
+                                     f"times in {nsteps} steps")
+            add_launches(got, enc)
+            run = lambda: step(st, op, cam, gt, t, it2 + 9, gen())  # noqa
+            a, b = run(), run()
+            same = torch.equal(a[2]["loss"], b[2]["loss"]) and all(
+                torch.equal(x, y) for x, y in zip(
+                    O.tree_leaves(a[0].params), O.tree_leaves(b[0].params)))
+            step_ms[enc] = float(np.median(ms[1:]))
+            log(f"{enc}: stage-2 loss {float(m['loss']):.6f}, ms per step "
+                f"{[round(x, 3) for x in ms]}; one step run twice "
+                f"identical {same}; launches {got}")
+            if not same:
+                raise AssertionError(f"{enc}: a step run twice differs; "
+                                     f"first op that differs: "
+                                     f"{diagnose_nondeterminism(run)}")
+        log(f"stage-2 ms per step (median of steps 2-{nsteps}): hashgrid "
+            f"{step_ms['hashgrid']:.3f}, fourier {step_ms['fourier']:.3f}, "
+            f"brick {step_ms['brick']:.3f}")
+
+    with Phase("distill_weight_init (20 steps, hashgrid and brick)"):
+        n_d = 3 if rehearse else 20
+        for enc in ("hashgrid", "brick"):
+            cfg, st = trans[enc]
+            t0 = time.perf_counter()
+            a, la = distill_weight_init(st, cfg, n_d)
+            sync(dev)
+            d_ms = (time.perf_counter() - t0) * 1e3 / n_d
+            b, lb = distill_weight_init(st, cfg, n_d)
+            same = torch.equal(la, lb) and all(
+                torch.equal(x, y) for x, y in zip(O.tree_leaves(a.params),
+                                                  O.tree_leaves(b.params)))
+            log(f"distill ({enc}): loss {float(la[0]):.4e} -> "
+                f"{float(la[-1]):.4e}, {d_ms:.2f} ms a step; a second run "
+                f"bit-identical {same}")
+            if not (float(la[-1]) < float(la[0]) and same
+                    and finite_tree(a.params)):
+                raise AssertionError(f"distill ({enc}) failed")
+
+    with Phase("transition_diagnostics (phase 13's transition state)"):
+        cfg = ctx["s2_cfg"]
+        view = SimpleNamespace(time=float(t))
+        shim = SimpleNamespace(
+            cfg=cfg, state=ctx["s2_trans"], bg=np.zeros(3, np.float32),
+            width=size, height=size,
+            scene=SimpleNamespace(test_cameras=[view]),
+            _view=lambda c: (cam, t, gt))
+        diag = transition_diagnostics(shim)
+        log(f"transition diagnostics: {json.dumps(diag)}")
+        vals = [v for k, v in diag.items() if k not in ("views", "per_time")]
+        vals += [x for v in diag["views"] for x in v.values()]
+        vals += [x for e in diag["per_time"] for x in e.values()]
+        if not np.isfinite(vals).all():
+            raise AssertionError("transition diagnostics: not finite")
+
+    with Phase("quality tool at the protocol's width (stage1, hashgrid)"):
+        out = os.path.join(BUILD_DIR, "gpt_quality_smoke")
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--out", out, "--arms", "stage1", "hashgrid"]
+        argv += ["--cpu-tiny"] if rehearse else ["--steps", "600"]
+        old = os.environ.get("GPT_FORCE_CPU")
+        if rehearse:
+            os.environ["GPT_FORCE_CPU"] = "1"
+        kernels.reset_launch_counts()
+        try:
+            q = TQ.main(argv)
+            sync(dev)
+            add_launches(dict(kernels.launch_counts), "hashgrid")
+        finally:
+            if old is None:
+                os.environ.pop("GPT_FORCE_CPU", None)
+            else:
+                os.environ["GPT_FORCE_CPU"] = old
+        for arm in ("stage1", "hashgrid"):
+            with open(os.path.join(out, arm, "history.json")) as f:
+                ev = [h["eval"]["test_psnr"] for h in json.load(f)
+                      if "eval" in h]
+            e = q["arms"][arm]
+            log(f"quality tool {arm}: test PSNR at the reports "
+                f"{[round(x, 3) for x in ev]} -> {e['test_psnr']:.3f}, wall "
+                f"{e['wall_s']} s, ms per iteration {e['ms_per_iter']}")
+            if not (len(ev) >= 2 and ev[-1] > ev[0]
+                    and np.isfinite(e["test_psnr"])):
+                raise AssertionError(f"quality tool {arm}: the test PSNR "
+                                     f"did not rise")
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"encoders phase (the steps timed and the quality tool): launches "
+        f"{launches}")
+    dms = {"scatter_add_sorted_brick":
+           res["scatter_add_sorted_brick"]["kernel_device_ms"]}
+    return res, launches, dms
 
 
 def trainer_schedule(cfg, u: int, model_path: str):
@@ -2539,6 +2765,12 @@ def main() -> int:
     res.update(sres)
     launches.update({k: slaunches.get(k, 0) for k in sres})
     device_ms.update(sdevice_ms)
+    eres, elaunches, edevice_ms = encoder_phases(ctx, dev, args.seed,
+                                                 args.rehearse, reps)
+    res.update(eres)
+    for k, v in elaunches.items():
+        launches[k] = launches.get(k, 0) + v
+    device_ms.update(edevice_ms)
     tr, info = trainer_phases(dev, args.seed, args.rehearse, reps)
     glaunches = gcn_phases(tr, info, dev, args.seed, args.rehearse)
     for k in FWD_KERNELS:

@@ -12,8 +12,7 @@ The flags, their defaults and the resolved config are train.py's: the same
 argv gives the same cfg.json, written to the model dir. Runs on the card
 (GPT_FORCE_CPU=1: on the CPU). Flags whose path the port lacks raise
 NotImplementedError naming their ROADMAP.md item: --batch > 1,
---n_devices > 1, --steps_per_call > 1, --profile_steps > 0,
---weight_encoder brick|fourier and --distill_init_steps > 0.
+--n_devices > 1, --steps_per_call > 1 and --profile_steps > 0.
 """
 from __future__ import annotations
 
@@ -132,10 +131,6 @@ def refuse_unported(cfg, args) -> None:
          "--steps_per_call > 1 (several steps per device call)", 1),
         (cfg.train.profile_steps > 0, "--profile_steps (the profiler hook)",
          1),
-        (cfg.model.weight_encoder != "hashgrid",
-         f"--weight_encoder {cfg.model.weight_encoder}", 3),
-        (cfg.train.distill_init_steps > 0,
-         "--distill_init_steps > 0 (the blend-weight distillation)", 3),
     ]
     for hit, what, item in refused:
         if hit:

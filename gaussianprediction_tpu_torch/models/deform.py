@@ -8,8 +8,9 @@ Torch twin of gaussianprediction_tpu/models/deform.py:
            -> (Δxyz, Δq[, Δo])
   stage2/3 (iter >  second_stage_iteration): the MLP runs on the keypoints
            only; each Gaussian's motion is a softmax-weighted blend of its
-           K nearest keypoints' deltas, the blend logits from the hash-grid
-           weight model
+           K nearest keypoints' deltas, the blend logits from the weight
+           model (the hash grid, the brick grid or Fourier features, then
+           an MLP)
 
 The blend keeps the JAX package's KNN-sparse form (a gather of K rows per
 Gaussian) in the forward. Its backward into the keypoint rows is the
@@ -33,7 +34,12 @@ from gaussianprediction_tpu_torch.models.gaussians import (
     rotation_act,
     scaling_act,
 )
-from gaussianprediction_tpu_torch.ops.hashgrid import hashgrid_encode_fast
+from gaussianprediction_tpu_torch.ops.fourier_enc import (
+    fourier_encode, model_dirs,
+)
+from gaussianprediction_tpu_torch.ops.hashgrid import (
+    brickgrid_encode_fast, hashgrid_encode_fast,
+)
 from gaussianprediction_tpu_torch.ops.knn import hybrid_knn, knn
 from gaussianprediction_tpu_torch.ops.mlp import mlp_apply
 from gaussianprediction_tpu_torch.utils.math import (
@@ -78,20 +84,29 @@ def xyz_encode(cfg: Config, xyz):
     return positional_encoding(xyz, xyz_dim // 6)
 
 
+def encode_weights(params, cfg: Config, xyz):
+    """The weight encoder's features of (detached) positions, by
+    cfg.model.weight_encoder: the hash grid, the brick grid, or the
+    Fourier features of the fixed frequency matrix."""
+    m = cfg.model
+    if m.weight_encoder == "fourier":
+        return fourier_encode(model_dirs(m, xyz.device).to(xyz.dtype), xyz,
+                              m.hash_bound)
+    enc = brickgrid_encode_fast if m.weight_encoder == "brick" \
+        else hashgrid_encode_fast
+    return enc(params["hash_tables"], xyz, m.hash_bound, m.hash_min_res,
+               m.hash_max_res)
+
+
 def blend_weights(params, cfg: Config, state: GaussianState):
-    """The weight model (hash-grid encoder + MLP) on the detached
-    Gaussian positions, the K nearest keypoints ("3D" or the 35-d
-    "hybird" KNN) and a softmax over each Gaussian's K logits.
+    """The weight model (encoder + MLP) on the detached Gaussian
+    positions, the K nearest keypoints ("3D" or the 35-d "hybird" KNN) and
+    a softmax over each Gaussian's K logits.
     Returns (nn_idx [C, K] int32, weights_xyz [C, K], weights_r [C, K])."""
     K = cfg.model.nearest_num
     m = cfg.model
-    if m.weight_encoder != "hashgrid":
-        raise NotImplementedError(
-            f"weight_encoder={m.weight_encoder!r} is not ported yet "
-            "(ROADMAP.md, Queue 1)")
     xyz = params["xyz"].detach()
-    enc = hashgrid_encode_fast(params["hash_tables"], xyz, m.hash_bound,
-                               m.hash_min_res, m.hash_max_res)
+    enc = encode_weights(params, cfg, xyz)
     logits = mlp_apply(params["weight_mlp"], enc)                # [C, 2K]
     # the [C, Ck] distances to a few hundred keypoints fit in one block
     block = xyz.shape[0]

@@ -115,21 +115,37 @@ def deform_mlp_sizes(cfg: Config):
 
 
 def weight_model(cfg: Config, rng: np.random.Generator):
-    """The blend-weight model of stages 2/3, drawn with numpy: (hash
-    tables {"level_l": [size_l, F]}, weight MLP [L*F] + [64]*2 + [2K]).
-    Only the `hashgrid` encoder is ported; `brick` and `fourier` raise."""
-    from gaussianprediction_tpu_torch.ops.hashgrid import init_hashgrid
+    """The blend-weight model of stages 2/3, drawn with numpy: (tables,
+    weight MLP [n_feat] + [64]*2 + [2K]). The tables by encoder:
+    `hashgrid` {"level_l": [size_l, F]}, `brick` {"level_l": [n_bricks_l,
+    64 F]}, `fourier` None (its frequency matrix is a constant)."""
+    from gaussianprediction_tpu_torch.ops.hashgrid import (
+        init_brickgrid, init_hashgrid,
+    )
     from gaussianprediction_tpu_torch.ops.mlp import init_mlp
 
     m = cfg.model
-    if m.weight_encoder != "hashgrid":
-        raise NotImplementedError(
-            f"weight_encoder={m.weight_encoder!r} is not ported yet "
-            "(ROADMAP.md, Queue 1)")
-    tables = init_hashgrid(rng, n_levels=m.hash_levels,
-                           n_features=m.hash_features, log2_T=m.hash_log2_T,
-                           n_min=m.hash_min_res, max_res=m.hash_max_res)
-    n_feat = sum(t.shape[1] for t in tables.values())
+    if m.weight_encoder == "fourier":
+        from gaussianprediction_tpu_torch.ops.fourier_enc import (
+            fourier_feature_dim,
+        )
+
+        tables = None
+        n_feat = fourier_feature_dim(m.hash_levels, m.fourier_per_level)
+    elif m.weight_encoder == "brick":
+        tables = init_brickgrid(rng, n_levels=m.hash_levels,
+                                n_features=m.hash_features,
+                                log2_Tb=m.hash_log2_Tb, n_min=m.hash_min_res,
+                                max_res=m.hash_max_res)
+        n_feat = m.hash_levels * m.hash_features
+    elif m.weight_encoder == "hashgrid":
+        tables = init_hashgrid(rng, n_levels=m.hash_levels,
+                               n_features=m.hash_features,
+                               log2_T=m.hash_log2_T, n_min=m.hash_min_res,
+                               max_res=m.hash_max_res)
+        n_feat = sum(t.shape[1] for t in tables.values())
+    else:
+        raise ValueError(f"unknown weight_encoder {m.weight_encoder!r}")
     mlp = init_mlp(rng, [n_feat] + [m.weight_mlp_width] * m.weight_mlp_depth
                    + [2 * m.nearest_num])
     return tables, mlp
@@ -146,7 +162,8 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
     -10); keypoint rows of ones, none alive; the blend-weight model.
 
     The random parts, motion_feature ([C, F], U(-1e-3, 1e-3)), the deform
-    MLP, the hash tables and the weight MLP, are drawn from `generator` (a
+    MLP, the weight model's tables (none for `fourier`) and its MLP, are
+    drawn from `generator` (a
     torch.Generator on any device) unless given: tests pass the JAX
     package's draws."""
     from gaussianprediction_tpu_torch.device import resolve_device
@@ -191,7 +208,8 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=gdev))
         df_mlp = init_mlp(np.random.default_rng(seed), deform_mlp_sizes(cfg))
-    if hash_tables is None or weight_mlp is None:
+    has_tables = cfg.model.weight_encoder != "fourier"
+    if (has_tables and hash_tables is None) or weight_mlp is None:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=gdev))
         tables, wmlp = weight_model(cfg, np.random.default_rng(seed))
@@ -214,10 +232,11 @@ def create_from_pcd(cfg: Config, points: np.ndarray, colors: np.ndarray,
         "super_xyz": torch.ones((Ck, 3), dtype=f32, device=dev),
         "super_feature": torch.ones((Ck, F), dtype=f32, device=dev),
         "df_mlp": [{k: to(v) for k, v in layer.items()} for layer in df_mlp],
-        "hash_tables": {k: to(v) for k, v in hash_tables.items()},
         "weight_mlp": [{k: to(v) for k, v in layer.items()}
                        for layer in weight_mlp],
     }
+    if has_tables:   # the fourier model has none (the JAX layout)
+        params["hash_tables"] = {k: to(v) for k, v in hash_tables.items()}
     return GaussianState(params=params, alive=alive,
                          kpt_alive=torch.zeros((Ck,), dtype=torch.bool,
                                                device=dev))

@@ -213,3 +213,150 @@ def hashgrid_encode_fast(tables: dict, xyz, bound: float = 1.6,
     gradient of xyz is zero (the caller encodes detached positions)."""
     specs, _ = hashgrid_specs(tables, n_min, max_res)
     return _HashgridEncode.apply(xyz, specs, bound, _flat_tables(tables))
+
+
+# ---------------------------------------------------------------------------
+# The overlapping-brick hash grid (weight_encoder="brick"), the twin of the
+# JAX package's brickgrid_encode_fast. Each level stores overlapping
+# 4x4x4-cell bricks at stride 2: a point's cell (x0..x0+1)^3, with brick
+# origin 2 * (x0 >> 1) per axis, always lies inside one brick, so one row of
+# 64 * F values covers the point's whole trilinear query. The hash runs at
+# brick granularity, and a cell seen through two bricks is two parameters:
+# another function class than the tcnn twin above, of the same family.
+# ---------------------------------------------------------------------------
+BRICK = 4
+BRICK_CELLS = BRICK ** 3
+
+
+def _brick_counts(res: int, log2_Tb: int):
+    """(nbx, n_bricks): bricks per axis (x0 >> 1 for x0 in [0, res - 1])
+    and the level's table rows (dense, or capped at 2^log2_Tb and
+    hashed)."""
+    nbx = ((max(res, 1) - 1) >> 1) + 1
+    return nbx, min(nbx ** 3, 2 ** log2_Tb)
+
+
+def init_brickgrid(rng: np.random.Generator, n_levels: int = 16,
+                   n_features: int = 4, log2_Tb: int = 16, n_min: int = 16,
+                   max_res: int = 2048):
+    """Per-level [n_bricks, 64 * F] tables drawn U(-1e-4, 1e-4) with numpy
+    on the host (float32 numpy arrays)."""
+    tables = {}
+    for l, res in enumerate(level_resolutions(n_levels, n_min, max_res)):
+        _, nb = _brick_counts(res, log2_Tb)
+        tables[f"level_{l}"] = rng.uniform(
+            -1e-4, 1e-4, (nb, BRICK_CELLS * n_features)).astype(np.float32)
+    return tables
+
+
+def brick_specs(tables: dict, n_min: int, max_res: int):
+    """(res, nbx, n_bricks, brick offset) per level and the total brick
+    count."""
+    resolutions = level_resolutions(len(tables), n_min, max_res)
+    specs, off = [], 0
+    for l, res in enumerate(resolutions):
+        nb = tables[f"level_{l}"].shape[0]
+        specs.append((res, _brick_counts(res, 32)[0], nb, off))
+        off += nb
+    return specs, off
+
+
+@functools.lru_cache(maxsize=None)
+def _brick_consts(specs: tuple, device: torch.device):
+    """Per-level constants shaped [L, 1]: the resolution (float32), res - 1
+    (int64), bricks per axis, table rows, the dense flag, the offset."""
+    col = lambda v: torch.tensor(v, device=device)[:, None]  # noqa: E731
+    return (col([float(r) for r, _, _, _ in specs]).to(torch.float32),
+            col([max(r - 1, 0) for r, _, _, _ in specs])[..., None],
+            col([x for _, x, _, _ in specs]), col([b for _, _, b, _ in specs]),
+            col([x ** 3 <= b for _, x, b, _ in specs]),
+            col([o for _, _, _, o in specs]))
+
+
+def _brick_geom(xyz, specs, bound: float):
+    """Per level: the global brick row of each point bidx [L, N] int32, the
+    cell parities a [L, N, 3] int32 and the fractions f [L, N, 3] float32.
+    x0 is clamped to res - 1, so x == 1.0 falls on the corner pair
+    (res - 1, res) with weights (0, 1), the value the tcnn twin's clip at
+    res gives. All levels at once; the same integers and floats as the
+    JAX package's level-by-level loop (the hash in int64, cut to its low
+    32 bits, as in _corner_index)."""
+    res_f, res_m1, nbx, nb, dense, off = _brick_consts(tuple(specs),
+                                                       xyz.device)
+    pos = _normalize(xyz, bound)[None] * res_f[..., None]       # [L, N, 3]
+    p0 = torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0),
+                       res_m1)
+    f = pos - p0
+    b3 = p0 >> 1
+    bx, by, bz = b3[..., 0], b3[..., 1], b3[..., 2]
+    h = ((bx * PRIMES[0]) & _U32) ^ ((by * PRIMES[1]) & _U32) \
+        ^ ((bz * PRIMES[2]) & _U32)
+    bi = torch.where(dense, (bx * nbx + by) * nbx + bz, h % nb) + off
+    return bi.to(torch.int32), (p0 & 1).to(torch.int32), f
+
+
+def _axis_masks(a, f):
+    """[..., 4] weights of one axis's 4 cells: cell a gets 1 - f, cell
+    a + 1 gets f, the others 0."""
+    i = torch.arange(BRICK, dtype=a.dtype, device=a.device)
+    a_, f_ = a[..., None], f[..., None]
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    return torch.where(i == a_, 1.0 - f_, zero) + \
+        torch.where(i == a_ + 1, f_, zero)
+
+
+def _brick_encode(flat, bidx, a, f):
+    """[Tb, 64F] flat brick tables -> [N, L*F]: one row gather per (level,
+    point), then the trilinear weights contracted over z, y, x in turn
+    (the JAX package's einsums)."""
+    L, n = bidx.shape
+    F = flat.shape[1] // BRICK_CELLS
+    rows = flat.index_select(0, bidx.reshape(-1).to(torch.int64)).view(
+        L, n, BRICK, BRICK, BRICK, F)
+    mx, my, mz = (_axis_masks(a[..., i], f[..., i]) for i in range(3))
+    t = torch.einsum("lnxyzf,lnz->lnxyf", rows, mz)
+    t = torch.einsum("lnxyf,lny->lnxf", t, my)
+    feat = torch.einsum("lnxf,lnx->lnf", t, mx)                 # [L, N, F]
+    return feat.transpose(0, 1).reshape(n, L * F)
+
+
+def brick_keys_weights(bidx, a, f):
+    """The backward's cell-granular stream: keys [L, N, 8] int32 into the
+    [Tb * 64, F] cell view of the flat tables (brick row * 64 + the
+    corner's cell (ax + dx) * 16 + (ay + dy) * 4 + (az + dz)) and the
+    corners' trilinear weights w [L, N, 8]. Level-major with ascending
+    level ranges, as table_grads_sorted needs."""
+    corners = _corners(bidx.device)
+    pc = a[:, :, None, :] + corners                            # [L,N,8,3]
+    slot = (pc[..., 0] * BRICK + pc[..., 1]) * BRICK + pc[..., 2]
+    keys = bidx[:, :, None] * BRICK_CELLS + slot
+    return keys.to(torch.int32), _corner_weights(f, corners)
+
+
+class _BrickEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz, specs, bound, flat):
+        bidx, a, f = _brick_geom(xyz, specs, bound)
+        ctx.save_for_backward(xyz)
+        ctx.specs, ctx.bound, ctx.shape = specs, bound, flat.shape
+        return _brick_encode(flat, bidx, a, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        (xyz,) = ctx.saved_tensors
+        keys, w = brick_keys_weights(*_brick_geom(xyz, ctx.specs, ctx.bound))
+        nb, width = ctx.shape
+        dcells = table_grads_sorted(keys, w, g.contiguous(),
+                                    nb * BRICK_CELLS)      # [Tb * 64, F]
+        dxyz = torch.zeros_like(xyz) if ctx.needs_input_grad[0] else None
+        return dxyz, None, None, dcells.reshape(nb, width)
+
+
+def brickgrid_encode_fast(tables: dict, xyz, bound: float = 1.6,
+                          n_min: int = 16, max_res: int = 2048):
+    """The brick-table encoding xyz [N, 3] -> [N, L*F]. Its table gradient
+    is the cell-granular sort-and-reduce (table_grads_sorted, kernel
+    scatter_add_sorted on the card); the gradient of xyz is zero (the
+    caller encodes detached positions)."""
+    specs, _ = brick_specs(tables, n_min, max_res)
+    return _BrickEncode.apply(xyz, specs, bound, _flat_tables(tables))

@@ -29,6 +29,7 @@ from gaussianprediction_tpu_torch.convert import (
 from gaussianprediction_tpu_torch.models.gaussians import (
     STATS, GaussianState,
 )
+from gaussianprediction_tpu_torch.utils.jax_random import key_data
 
 GENERATOR_KEY = "meta/torch_generator"
 
@@ -38,8 +39,7 @@ def jax_key_data(seed: int) -> np.ndarray:
     without JAX: threefry's key is the seed's high and low 32 bits (JAX
     with 64-bit integers off keeps the low word only; the two agree for
     0 <= 2024 * seed < 2^32)."""
-    x = 2024 * int(seed)
-    return np.array([(x >> 32) & 0xFFFFFFFF, x & 0xFFFFFFFF], np.uint32)
+    return key_data(2024 * int(seed))
 
 
 def save_checkpoint(path: str, state: GaussianState, opt_state,

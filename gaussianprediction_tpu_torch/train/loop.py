@@ -20,11 +20,14 @@ model's random parts), _step_noise (each step's xyz and time jitter),
 _densify_noise (the split's offsets) and _kmeans_start (the k-means
 seed). A subclass that overrides them replays another sequence of draws.
 
+distill_weight_init, the twin of the JAX package's, pre-fits the blend-
+weight model to the stage-1 motion at the stage-2 start when
+cfg.train.distill_init_steps > 0 (off in every preset).
+
 Not ported yet, and raising NotImplementedError: gradient accumulation
 (cfg.train.batch > 1, ROADMAP.md Queue 1 item 4), several steps per call
-(steps_per_call > 1, item 1(b)), several devices (item 8), the profiler
-hook (cfg.train.profile_steps > 0), and the blend-weight distillation at
-the stage-2 start (distill_init_steps, off in every preset).
+(steps_per_call > 1, item 1(b)), several devices (item 8) and the profiler
+hook (cfg.train.profile_steps > 0).
 """
 from __future__ import annotations
 
@@ -77,21 +80,128 @@ def set_super_keypoints(state: GaussianState, cfg: Config,
     return state.replace(params=params, kpt_alive=kpt_alive)
 
 
+def distill_weight_init(state: GaussianState, cfg: Config, n_steps: int,
+                        n_times: int = 8):
+    """Pre-fit the blend-weight model to the stage-1 motion field (the JAX
+    package's distill_weight_init; the reference starts stage 2 from a
+    random weight model).
+
+    The teacher's deltas (the stage-1 MLP on every Gaussian) and the
+    keypoints' deltas are computed once at n_times timestamps in [0, 1]
+    (they do not depend on the weight model), the hybrid-KNN neighbour set
+    is fixed (keypoints and canonical xyz do not move here), and only the
+    encoder and its MLP are trained, by Adam at cfg.opt.hash_lr (b1 0.9,
+    b2 0.999, eps 1e-15), to minimize the squared error of the blended
+    xyz and normalized rotation deltas against the teacher's over the live
+    Gaussians. Draws no random numbers. Returns (state with the new weight
+    model, the loss of each step [n_steps])."""
+    from gaussianprediction_tpu_torch.models import deform as D
+    from gaussianprediction_tpu_torch.models.gaussians import rotation_act
+    from gaussianprediction_tpu_torch.ops.mlp import mlp_apply
+
+    p = state.params
+    m = cfg.model
+    K = m.nearest_num
+    xyz = p["xyz"].detach()
+    # jnp.linspace's values: i * (1 / (n - 1)), the last one 1
+    times = torch.arange(n_times, dtype=xyz.dtype, device=xyz.device) \
+        * (1.0 / max(n_times - 1, 1))
+    if n_times > 1:
+        times[-1] = 1.0
+    kalive = state.kpt_alive[:, None]
+    with torch.no_grad():
+        ident = torch.zeros_like(p["super_xyz"][:, :1]).repeat(1, 4)
+        ident[:, 0] = 1.0
+        deltas = []
+        for i in range(n_times):
+            t_pe = D.time_encode(cfg, times[i:i + 1])
+            tdx, tdq, _ = D.motion_delta(p, cfg, D.xyz_encode(cfg, xyz),
+                                         p["motion_feature"], t_pe)
+            kdx, kdq, _ = D.motion_delta(
+                p, cfg, D.xyz_encode(cfg, p["super_xyz"]),
+                p["super_feature"], t_pe)
+            if m.norm_rotation:
+                tdq, kdq = rotation_act(tdq), rotation_act(kdq)
+            kdx = torch.where(kalive, kdx, torch.zeros_like(kdx))
+            kdq = torch.where(kalive, kdq, ident)
+            deltas.append((tdx, tdq, kdx, kdq))
+        teach_dx, teach_dq, kpt_dx, kpt_dq = (torch.stack(d)
+                                              for d in zip(*deltas))
+        nn_idx = D.blend_weights(p, cfg, state)[0].to(torch.int64)
+        # the keypoints' deltas gathered at each Gaussian's fixed set
+        near_dx, near_dq = kpt_dx[:, nn_idx], kpt_dq[:, nn_idx]
+        teach_q = rotation_act(teach_dq)
+        alive_w = state.alive.to(xyz.dtype)[None, :, None]
+        n_alive = torch.clamp(state.alive.sum(), min=1).to(xyz.dtype)
+        enc_const = D.encode_weights(p, cfg, xyz) \
+            if m.weight_encoder == "fourier" else None
+
+    names = ["weight_mlp"] + (["hash_tables"] if "hash_tables" in p else [])
+    wp = {k: opt_mod.tree_map(torch.Tensor.detach, p[k]) for k in names}
+
+    def loss_fn(wp):
+        enc = enc_const if enc_const is not None else D.encode_weights(
+            wp, cfg, xyz)
+        logits = mlp_apply(wp["weight_mlp"], enc)
+        w_xyz = torch.softmax(logits[..., 0:K], dim=-1)
+        w_r = torch.softmax(logits[..., K:2 * K], dim=-1)
+        blend_dx = torch.einsum("nk,tnkc->tnc", w_xyz, near_dx)
+        blend_dq = torch.einsum("nk,tnkc->tnc", w_r, near_dq)
+        ex = torch.sum(((blend_dx - teach_dx) ** 2) * alive_w)
+        eq = torch.sum(((rotation_act(blend_dq) - teach_q) ** 2) * alive_w)
+        return (ex + eq) / (n_times * n_alive)
+
+    lr = cfg.opt.hash_lr
+    b1, b2, eps = 0.9, 0.999, 1e-15
+    mom = opt_mod.tree_map(torch.zeros_like, wp)
+    vel = opt_mod.tree_map(torch.zeros_like, wp)
+    one = torch.ones((), dtype=xyz.dtype, device=xyz.device)
+    losses = []
+    for i in range(n_steps):
+        leaves = opt_mod.tree_leaves(wp)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = loss_fn(wp)
+        grads = torch.autograd.grad(loss, leaves)
+        losses.append(loss.detach())
+        tf = one * (i + 1)
+        bc1, bc2 = 1 - torch.pow(one * b1, tf), 1 - torch.pow(one * b2, tf)
+        new = []
+        with torch.no_grad():
+            for x, g, mm, vv in zip(leaves, grads, opt_mod.tree_leaves(mom),
+                                    opt_mod.tree_leaves(vel)):
+                mm.mul_(b1).add_((1 - b1) * g)
+                vv.mul_(b2).add_((1 - b2) * g * g)
+                new.append(x - lr * (mm / bc1) / (torch.sqrt(vv / bc2) + eps))
+        it = iter(new)
+        wp = opt_mod.tree_map(lambda _: next(it), wp)
+    params = dict(p)
+    params.update(wp)
+    losses = torch.stack(losses) if losses else xyz.new_zeros((0,))
+    return state.replace(params=params), losses
+
+
 def stage_transition(state: GaussianState, opt_state, cfg: Config,
                      iteration: int,
                      generator: Optional[torch.Generator] = None,
-                     start_idx=None):
+                     start_idx=None, quiet: bool = True):
     """The host event at the first iteration of a stage, as the JAX
     Trainer makes it: entering stage 2 (second_stage_iteration + 1) the
-    keypoints are set by set_super_keypoints (when none is alive yet) and
-    Adam starts afresh; entering stage 3 Adam starts afresh. At any other
-    iteration nothing changes. Returns (state, opt_state)."""
+    keypoints are set by set_super_keypoints (when none is alive yet), the
+    weight model pre-fit by distill_weight_init when
+    cfg.train.distill_init_steps > 0 (its first and last loss printed
+    unless quiet), and Adam starts afresh; entering stage 3 Adam starts
+    afresh. At any other iteration nothing changes. Returns (state,
+    opt_state)."""
     if iteration == cfg.train.second_stage_iteration + 1 \
             and int(state.n_kpts()) == 0:
-        if cfg.train.distill_init_steps > 0:
-            raise NotImplementedError(
-                "distill_init_steps > 0 is not ported yet (ROADMAP.md)")
         state = set_super_keypoints(state, cfg, generator, start_idx)
+        n = cfg.train.distill_init_steps
+        if n > 0:
+            state, losses = distill_weight_init(state, cfg, n)
+            if not quiet:
+                print(f"[iter {iteration}] distill init: blend-teacher mse "
+                      f"{float(losses[0]):.3e} -> {float(losses[-1]):.3e}")
         return state, opt_mod.init_adam(state.params)
     if iteration == cfg.train.third_stage_iteration + 1:
         return state, opt_mod.init_adam(state.params)
@@ -264,7 +374,7 @@ class Trainer:
                 and int(self.state.n_kpts()) == 0):
             self.state, self.opt_state = stage_transition(
                 self.state, self.opt_state, cfg, iteration,
-                start_idx=self._kmeans_start())
+                start_idx=self._kmeans_start(), quiet=self.quiet)
             if not self.quiet:
                 print(f"[iter {iteration}] stage 2: keypoints initialized "
                       f"({int(self.state.n_kpts())})")

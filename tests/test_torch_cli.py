@@ -5,8 +5,9 @@ resolve_config of the port and of train.py give the same config JSON for
 the same argv, the parsers have the same flags and defaults, and a port
 cfg.json loads in the JAX package's Config. The flags whose path the port
 lacks raise NotImplementedError naming their ROADMAP.md item, before any
-file is written, and the CLIs refuse to run without a card unless
-GPT_FORCE_CPU=1. End to end, under GPT_FORCE_CPU=1, on a 32x32 D-NeRF
+file is written; --weight_encoder brick|fourier and --distill_init_steps
+train across both stage transitions. The CLIs refuse to run without a card
+unless GPT_FORCE_CPU=1. End to end, under GPT_FORCE_CPU=1, on a 32x32 D-NeRF
 tree on disk (the `test` preset, 100 iterations, max_time 0.75): train,
 eval (--render_video --render_train), train_gcn (--metrics
 --predict_more, then --load --evaluate), and show as a `python -m`
@@ -81,8 +82,6 @@ def test_parser_flags_and_defaults_equal():
 @pytest.mark.parametrize("flags,item", [
     (["--batch", "2"], 4), (["--n_devices", "2"], 8),
     (["--steps_per_call", "4"], 1), (["--profile_steps", "5"], 1),
-    (["--weight_encoder", "brick"], 3), (["--weight_encoder", "fourier"], 3),
-    (["--distill_init_steps", "10"], 3),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     model = tmp_path / "m"
@@ -144,6 +143,47 @@ def trained(tmp_path_factory):
 @pytest.fixture
 def on_cpu(monkeypatch):
     monkeypatch.setenv("GPT_FORCE_CPU", "1")
+
+
+# a schedule that crosses the 1 -> 2 and 2 -> 3 transitions in 16
+# iterations (train.py's own flags)
+SHORT_STAGES = ["--preset", "test", "--iterations", "16", "--max_time",
+                "0.75", "--jointly_iteration", "4",
+                "--second_stage_iteration", "10",
+                "--third_stage_iteration", "13", "--test_iterations", "16"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--weight_encoder", "brick"], ["--weight_encoder", "fourier"],
+    ["--distill_init_steps", "10"],
+])
+def test_encoder_and_distill_flags_train(trained, tmp_path, on_cpu, flags):
+    """The flags the port once refused train across both transitions:
+    the keypoints set, the weight model trained (brick tables, or none for
+    fourier), finite losses and a test report; distillation prints its
+    first and last loss."""
+    from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
+
+    scene = trained[0]
+    model = tmp_path / "m"
+    tr, out = quiet_call(TT.main, ["-s", scene, "-m", str(model),
+                                   *SHORT_STAGES, *flags])
+    assert "Training complete" in out and tr.iteration == 16
+    assert "stage 2: keypoints initialized (16)" in out
+    assert ("distill init: blend-teacher mse" in out) == \
+        (flags[0] == "--distill_init_steps")
+    enc = tr.cfg.model.weight_encoder
+    p = tr.state.params
+    assert ("hash_tables" in p) == (enc != "fourier")
+    if enc == "brick":
+        assert p["hash_tables"]["level_0"].shape[1] == \
+            64 * tr.cfg.model.hash_features
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(p))
+    with open(model / "history.json") as f:
+        hist = json.load(f)
+    assert np.isfinite([h["loss"] for h in hist if "loss" in h]).all()
+    assert [h["eval"]["iter"] for h in hist if "eval" in h] == [16]
+    assert (model / "chkpnt16.npz").exists()
 
 
 def test_train_writes_its_outputs(trained):

@@ -429,10 +429,10 @@ def test_scatter_add_sorted_kernel_equals_plain(cuda_device, case):
     assert not a[:, ~hit].any()
 
 
-def test_stage2_step_on_card_is_deterministic(cuda_device):
-    """A `test`-preset model through the stage-1 -> 2 transition, then one
-    stage-2 step (kernel #7 and the keypoint blend's GEMM backward) run
-    twice from the same state: loss, params and moments bit-identical."""
+def _stage2_twice(dev, encoder):
+    """A `test`-preset model with the given weight encoder through the
+    stage-1 -> 2 transition, then one stage-2 step run twice from the same
+    state: (the two outputs, kernel #7's launches in them)."""
     from gaussianprediction_tpu_torch.config import get_preset
     from gaussianprediction_tpu_torch.models.gaussians import create_from_pcd
     from gaussianprediction_tpu_torch.train import optimizer as O
@@ -440,35 +440,109 @@ def test_stage2_step_on_card_is_deterministic(cuda_device):
     from gaussianprediction_tpu_torch.train.step import make_train_step
 
     cfg = get_preset("test")
+    cfg.model.weight_encoder = encoder
     rng = np.random.default_rng(4)
     pts = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
     cols = rng.uniform(0, 1, (400, 3)).astype(np.float32)
     state = create_from_pcd(cfg, pts, cols, torch.Generator().manual_seed(0),
-                            device=cuda_device)
+                            device=dev)
     params = dict(state.params)
     params["motion_feature"] = 0.3 * torch.randn(
-        params["motion_feature"].shape, device=cuda_device,
-        generator=torch.Generator(cuda_device).manual_seed(1))
+        params["motion_feature"].shape, device=dev,
+        generator=torch.Generator(dev).manual_seed(1))
     state = state.replace(params=params)
     it = cfg.train.second_stage_iteration + 1
     state, opt = stage_transition(state, O.init_adam(state.params), cfg, it,
-                                  torch.Generator(cuda_device).manual_seed(2))
+                                  torch.Generator(dev).manual_seed(2))
     step = make_train_step(cfg, 2, 64, 64, 1.0, 1, 50,
-                           torch.zeros(3, device=cuda_device))
-    cam = orbit_camera(0.9, width=64, height=64).to_device_dict(cuda_device)
-    gt = torch.rand((64, 64, 3), device=cuda_device,
-                    generator=torch.Generator(cuda_device).manual_seed(3))
+                           torch.zeros(3, device=dev))
+    cam = orbit_camera(0.9, width=64, height=64).to_device_dict(dev)
+    gt = torch.rand((64, 64, 3), device=dev,
+                    generator=torch.Generator(dev).manual_seed(3))
     before = launch_counts["scatter_add_sorted"]
-    outs = [step(state, opt, cam, gt, torch.tensor(0.3, device=cuda_device),
-                 it, torch.Generator(cuda_device).manual_seed(5))
-            for _ in range(2)]
-    assert launch_counts["scatter_add_sorted"] == before + 2
+    outs = [step(state, opt, cam, gt, torch.tensor(0.3, device=dev), it,
+                 torch.Generator(dev).manual_seed(5)) for _ in range(2)]
+    return outs, launch_counts["scatter_add_sorted"] - before
+
+
+def _assert_identical(outs):
+    from gaussianprediction_tpu_torch.train import optimizer as O
+
     (s1, o1, m1), (s2, o2, m2) = outs
     assert int(m1["n_dropped"]) == 0 and torch.isfinite(m1["loss"])
     assert torch.equal(m1["loss"], m2["loss"])
     for a, b in zip(O.tree_leaves([s1.params, o1["m"], o1["v"]]),
                     O.tree_leaves([s2.params, o2["m"], o2["v"]])):
         assert torch.equal(a, b)
+
+
+def test_stage2_step_on_card_is_deterministic(cuda_device):
+    """A `test`-preset model through the stage-1 -> 2 transition, then one
+    stage-2 step (kernel #7 and the keypoint blend's GEMM backward) run
+    twice from the same state: loss, params and moments bit-identical."""
+    outs, launches = _stage2_twice(cuda_device, "hashgrid")
+    assert launches == 2
+    _assert_identical(outs)
+
+
+@pytest.mark.parametrize("encoder", ["fourier", "brick"])
+def test_encoder_stage2_step_on_card_is_deterministic(cuda_device, encoder):
+    """The same with the fourier encoder (no tables, no #7) and the brick
+    encoder (#7 on the cell-granular stream)."""
+    outs, launches = _stage2_twice(cuda_device, encoder)
+    assert launches == (2 if encoder == "brick" else 0)
+    assert ("hash_tables" in outs[0][0].params) == (encoder == "brick")
+    _assert_identical(outs)
+
+
+def test_brick_table_gradient_kernel_equals_plain(cuda_device):
+    """#7 on the brick encoder's cell-granular stream (16 levels of F=4
+    bricks, 2^16 rows a hashed level, 50k points): the sorted stream
+    through the kernel bit for bit its plain version on the CPU, two
+    launches bit-identical, within 64 * 2^-24 * Σ|v| of index_add_, empty
+    slots 0; and the encoder's whole backward on the card run twice
+    bit-identical. (Not bit for bit the CPU's: a division by a scalar is a
+    multiplication by its reciprocal on the card, so a fraction may move
+    by an ulp and a corner key at a cell's edge with it.)"""
+    from gaussianprediction_tpu_torch.ops import hashgrid as HG
+
+    g = torch.Generator().manual_seed(6)
+    tables = HG.init_brickgrid(np.random.default_rng(6), 16, 4, 16, 16,
+                               2048)
+    specs, nb = HG.brick_specs(tables, 16, 2048)
+    xyz = (torch.rand((50_000, 3), generator=g) * 2.0 - 1.0) * 1.2
+    grad = torch.randn((50_000, 64), generator=g)
+    keys, w = HG.brick_keys_weights(*HG._brick_geom(xyz.to(cuda_device),
+                                                    specs, 1.6))
+    L, n, _ = keys.shape
+    total = nb * HG.BRICK_CELLS
+    g_l = grad.to(cuda_device).reshape(n, L, 4).permute(2, 1, 0)
+    vals = (w[None] * g_l[..., None]).reshape(4, L, n * 8)
+    ks, perm = torch.sort(keys.reshape(L, n * 8), dim=1, stable=True)
+    vs = torch.gather(vals, 2, perm[None].expand(4, L, n * 8))
+    ks, vs = ks.reshape(-1).contiguous(), vs.reshape(4, -1).contiguous()
+    a = THK.scatter_add_sorted(ks, vs, total)
+    b = THK.scatter_add_sorted(ks, vs, total)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), THK.scatter_add_sorted_plain(
+        ks.cpu(), vs.cpu(), total))
+    lib = torch.zeros_like(a).index_add_(1, ks, vs)
+    tol = 64 * 2.0 ** -24 * torch.zeros_like(a).index_add_(1, ks, vs.abs())
+    assert bool(((a - lib).abs() <= tol).all())
+    hit = torch.zeros(total, dtype=torch.bool, device=cuda_device)
+    hit[ks.to(torch.int64)] = True
+    assert not a[:, ~hit].any() and int(hit.sum()) < total
+    # the encoder's whole backward on the card, twice: bit-identical
+    grads = []
+    for _ in range(2):
+        tt = {k: torch.as_tensor(v, device=cuda_device).requires_grad_(True)
+              for k, v in tables.items()}
+        out = HG.brickgrid_encode_fast(tt, xyz.to(cuda_device), 1.6, 16,
+                                       2048)
+        out.backward(grad.to(cuda_device))
+        grads.append([tt[k].grad for k in tables])
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
 
 
 def test_render_matches_oracle_on_card(cuda_device):

@@ -39,11 +39,7 @@ from gaussianprediction_tpu_torch.data.synthetic import (
 )
 from gaussianprediction_tpu_torch.eval import render as teval
 from gaussianprediction_tpu_torch.ops import rasterize as TR
-from gaussianprediction_tpu_torch.models.gaussians import (
-    GaussianState, weight_model,
-)
 from gaussianprediction_tpu_torch.train import step as tstep
-from gaussianprediction_tpu_torch.train.loop import stage_transition
 
 W = H = 128
 N = 2000
@@ -234,17 +230,3 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError):
             TR.render(g["xyz"], g["s"], g["q"], torch.ones(4), None, cam, 32,
                       32, torch.zeros(3), colors_precomp=g["xyz"], **kw)
-    for enc in ("brick", "fourier"):
-        cfg = tcfg.get_preset("dnerf")
-        cfg.model.weight_encoder = enc
-        with pytest.raises(NotImplementedError):
-            tstep.deform_for_stage({"xyz": g["xyz"]}, cfg, None,
-                                   torch.tensor(0.0), 40_000, None, 2)
-        with pytest.raises(NotImplementedError):
-            weight_model(cfg, np.random.default_rng(0))
-    cfg = tcfg.get_preset("dnerf")
-    cfg.train.distill_init_steps = 10
-    st = GaussianState(params={}, alive=torch.ones(4, dtype=torch.bool),
-                       kpt_alive=torch.zeros(4, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        stage_transition(st, None, cfg, cfg.train.second_stage_iteration + 1)

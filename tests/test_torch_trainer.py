@@ -12,7 +12,8 @@ package's, on the `test` preset at 32x32.
   of that state is the JAX package's byte for byte; the port's own
   checkpoint round-trips bit for bit, its generator state included, and
   loads through the JAX package's loader bit for bit, with the key of
-  the JAX Trainer's PRNGKey(2024 * seed).
+  the JAX Trainer's PRNGKey(2024 * seed); so do the checkpoints of the
+  brick and fourier weight models (past the stage-2 transition).
 - Trajectory: the JAX Trainer saves a checkpoint at iteration 0 and runs 55
   iterations (0 -> 1 at 10; densify, prune and the capacity re-probe at
   50). The port's Trainer loads that checkpoint and runs the same 55
@@ -239,6 +240,50 @@ def test_port_checkpoint_loads_in_jax(jinfo, jax_run, tmp_path):
     assert sorted(ours) == sorted(theirs)
     for k, v in theirs.items():
         assert ours[k].dtype == v.dtype, k
+        assert ours[k].tobytes() == v.tobytes(), k
+
+
+@pytest.mark.parametrize("enc", ["brick", "fourier"])
+def test_encoder_checkpoint_loads_in_jax(jinfo, enc, tmp_path):
+    """A port checkpoint of a brick or fourier model, two stage-2
+    iterations past the transition, loads through the JAX loader with
+    templates from the JAX create_from_pcd of the same encoder: the same
+    tree (brick tables of the JAX shapes; no hash tables for fourier),
+    every array equal bit for bit."""
+    from gaussianprediction_tpu.train import optimizer as jopt
+
+    cfg = get_preset("test")
+    cfg.model.weight_encoder = enc
+    tr = Trainer(cfg, Scene(_port_info(jinfo), seed=SEED), seed=5,
+                 device=CPU, quiet=True)
+    it = cfg.train.second_stage_iteration + 1
+    for i in (it, it + 1):
+        tr.train_one(i)
+        tr.iteration = i
+    assert int(tr.state.n_kpts()) == cfg.model.max_points
+    path = str(tmp_path / f"{enc}.npz")
+    tr.save_checkpoint(path)
+    jc = jget_preset("test")
+    jc.model.weight_encoder = enc
+    info = tr.scene.info
+    tmpl = jax.eval_shape(lambda k: JG.create_from_pcd(
+        k, jc, info.points, info.colors), jax.random.PRNGKey(0))
+    opt_tmpl = jax.eval_shape(jopt.init_adam, tmpl.params)
+    assert ("hash_tables" in tmpl.params) == (enc == "brick")
+    state, opt_state, iteration, _ = jckpt.load_checkpoint(path, tmpl,
+                                                           opt_tmpl)
+    assert iteration == it + 1
+    for a, b in zip(jax.tree.leaves(state.params),
+                    jax.tree.leaves(tmpl.params)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    ours = _flat(tr.state, tr.opt_state)
+    theirs = ckpt._flatten({"params": state.params, "opt": opt_state,
+                            "meta": {"alive": state.alive,
+                                     "kpt_alive": state.kpt_alive,
+                                     **{k: getattr(state, k)
+                                        for k in ckpt.STATS}}})
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
         assert ours[k].tobytes() == v.tobytes(), k
 
 
