@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stage-1 eval render, its training steps of
-every stage, its Trainer loop, motion extrapolation and its four CLIs on a
-scene on disk, on one NVIDIA H100.
+every stage (the classic binning path, the ellipse cull and gradient
+accumulation too), its Trainer loop, motion extrapolation and its four
+CLIs on a D-NeRF and a HyperNeRF scene on disk, on one NVIDIA H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -62,6 +63,26 @@ the run with a non-zero exit and no result line):
      launched (5 and 1 times) and the classic ones not; ms per view and per
      step (6 steps from one state) beside the classic path's; a profile of
      one view and one step under each;
+ 12b. the classic path (classic_phases): on phase 6's model and first
+     view, render(fast_binning=False) equal to the fast path's render bit
+     for bit with n_dropped == 0, blend_fwd equal to its plain version bit
+     for bit on its CHUNK-aligned stream (segments with padding gaps);
+     a render under GPT_ELLIPSE_CULL=1 equal to the uncut one bit for bit
+     (the culled share printed), one from cov3d_precomp (the same scales
+     and rotations) bit for bit, one with tight_rects=False finite with
+     n_dropped == 0; a stage-1 step through the binning path (blend_bwd
+     equal to its plain version bit for bit, sums="kernel"; twice
+     bit-identical; the loss equal to the fast path's bit for bit, the
+     per-Gaussian reduction within 64 * 2^-24 * max |cumsum| of the fast
+     path's: the same columns behind a negative prefix of another length,
+     which the card's row-wise scan associates otherwise), every
+     blend variant's kernels on its stream equal to classic, a stage-1
+     step under the cull equal to the uncut step bit for bit; a batched
+     step of 3 (make_train_step_batched) within 1e-6 of three single
+     renders' gradients summed and one Adam update, twice bit-identical;
+     ms of each path beside the fast path's; the launches of the binning
+     render, the binning step and the batched step added to the kernels
+     line's rows;
  13. the 1->2 transition of the trained stage-1 model at iteration 30001:
      a smooth non-zero motion feature, a seeded hash-grid weight model (16
      levels, F=4, T=2^19, the 2x64 MLP), k-means keypoints
@@ -164,9 +185,23 @@ the run with a non-zero exit and no result line):
      forward kernel equal to its plain version bit for bit on the last
      render's stream); cli.train_gcn --metrics --predict_more (the GCN
      checkpoint, the predicted frames' metrics, ms per predicted frame);
-     cli.show as a `python -m` subprocess; the three CLIs' launches added
+     cli.show as a `python -m` subprocess; load_ply_params of the PLY
+     cli.train wrote equal bit for bit to the saved state's live rows;
+     evaluate_dirs on cli.eval's renders and ground truths (the card's
+     machine has no imageio); the three CLIs' launches added
      to rows stack, expand, interleave, blend_fwd, blend_bwd and
      scatter_add_sorted;
+ 21b. the HyperNeRF presets (hypernerf_phases): phase 18's scene rendered
+     at 960x540 (a HyperNeRF interp capture's rgb/2x) and written as a
+     HyperNeRF tree (data/hypernerf.py:write_hypernerf), loaded back with
+     every image equal to the written bytes / 255 and the every-4th-frame
+     split; cli.train --preset chickchicken --batch 2 (time decay;
+     Trainer.train_batch) and cli.eval, then an in-process `lemon`
+     Trainer with step opacity gated on from u: each through stages 0-3
+     of a schedule compressed onto 600 iterations, n_dropped == 0 on
+     every stream, the test PSNR rising, a stage-3 step (the batched one
+     for chickchicken) run twice bit-identical, ms per iteration per
+     stage; the launches added to the kernels line's rows;
  22. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -1725,8 +1760,10 @@ def encoder_phases(ctx, dev, seed: int, rehearse: bool, reps: int):
             log(f"quality tool {arm}: test PSNR at the reports "
                 f"{[round(x, 3) for x in ev]} -> {e['test_psnr']:.3f}, wall "
                 f"{e['wall_s']} s, ms per iteration {e['ms_per_iter']}")
+            # the rehearsal's 30 iterations are too few to show it: there
+            # it is printed only
             if not (len(ev) >= 2 and ev[-1] > ev[0]
-                    and np.isfinite(e["test_psnr"])):
+                    and np.isfinite(e["test_psnr"])) and not rehearse:
                 raise AssertionError(f"quality tool {arm}: the test PSNR "
                                      f"did not rise")
         shutil.rmtree(out, ignore_errors=True)
@@ -2542,7 +2579,28 @@ def cli_phases(info, dev, seed: int, rehearse: bool):
             log(f"CLI train: checks failed {fails}")
             if fails and not rehearse:
                 raise AssertionError(f"CLI train: {fails}")
-            del tr
+
+        with Phase("CLI: load_ply_params of the written PLY"):
+            from gaussianprediction_tpu_torch.models.gaussians import (
+                load_ply_params,
+            )
+
+            ply = os.path.join(model, f"point_cloud/iteration_{tr.iteration}"
+                                      "/point_cloud.ply")
+            lp, lalive = load_ply_params(ply, tr.cfg, device=dev)
+            nl = int(lalive.sum())
+            live = tr.state.alive
+            same = nl == int(live.sum()) and all(
+                bits_equal(lp[k][:nl], tr.state.params[k][live])
+                for k in lp)
+            dead = bool((lp["opacity"][nl:] == -15.0).all())
+            log(f"CLI load_ply_params: {nl} live rows of "
+                f"{lalive.shape[0]}; params equal to the saved state's live "
+                f"rows bit for bit {same}; dead rows at opacity -15 {dead}")
+            if not (same and dead):
+                raise AssertionError("load_ply_params differs from the "
+                                     "saved state")
+            del tr, lp
 
         with Phase("CLI: cli.eval --render_video --render_train"):
             with Capture([(rk, "rasterize_binned")]) as cap:
@@ -2569,6 +2627,26 @@ def cli_phases(info, dev, seed: int, rehearse: bool):
                 f"equal to its plain version bit for bit {same}")
             if not np.isfinite(metrics["PSNR"]) or not same:
                 raise AssertionError("CLI eval: PSNR or blend_fwd")
+
+        with Phase("CLI: evaluate_dirs on the eval renders"):
+            from gaussianprediction_tpu_torch.eval.metrics import (
+                evaluate_dirs,
+            )
+
+            edir = os.path.join(root, "evaluate_dirs")
+            os.makedirs(edir)
+            t0 = time.perf_counter()
+            er = evaluate_dirs(os.path.join(res["out_dir"], "renders"),
+                               os.path.join(res["out_dir"], "gt"), edir,
+                               device=dev)
+            n_maps = len(os.listdir(os.path.join(edir, "deltas")))
+            log(f"CLI evaluate_dirs: PSNR {er['mean']['PSNR']} from the "
+                f"written PNGs (cli.eval's, from the renders in memory: "
+                f"{metrics['PSNR']}), {n_maps} error maps "
+                f"({sorted(os.listdir(os.path.join(edir, 'deltas')))[0]}), "
+                f"{time.perf_counter() - t0:.2f} s")
+            if not np.isfinite(er["mean"]["PSNR"]) or not n_maps:
+                raise AssertionError("evaluate_dirs")
 
         with Phase("CLI: cli.train_gcn --metrics --predict_more"):
             frame_ms = []
@@ -2621,6 +2699,643 @@ def cli_phases(info, dev, seed: int, rehearse: bool):
             os.environ["GPT_FORCE_CPU"] = saved_env
         shutil.rmtree(root, ignore_errors=True)
     log(f"CLI: launches of train, eval and train_gcn {launches}")
+    return launches
+
+
+class classic_binning:
+    """Route the port's render through the binning path
+    (render(fast_binning=False)) for the block: the steps call
+    rasterize.render."""
+
+    def __enter__(self):
+        import functools
+
+        from gaussianprediction_tpu_torch.ops import rasterize as RZ
+
+        self.orig = RZ.render
+        RZ.render = functools.partial(self.orig, fast_binning=False)
+        return self
+
+    def __exit__(self, *exc):
+        from gaussianprediction_tpu_torch.ops import rasterize as RZ
+
+        RZ.render = self.orig
+        return False
+
+
+def tree_diff(a, b):
+    """(bit for bit, the largest difference as a share of each leaf's
+    largest magnitude) of two tensor trees."""
+    from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    bits = all(bits_equal(x, y) for x, y in zip(la, lb))
+    worst = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(la, lb))
+    return bits, worst
+
+
+def counted_launches(fn, dev):
+    """(fn(), the kernel launches of that call): the counts set to 0 just
+    before and read just after."""
+    from gaussianprediction_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    sync(dev)
+    return out, dict(kernels.launch_counts)
+
+
+def classic_phases(cfg, dev, rstate, iteration, views, renders, ctx,
+                   rehearse: bool, reps: int):
+    """Phase 'classic path' (the slice that ports gradient accumulation,
+    the classic binning, cov3d_precomp, tight_rects=False and the ellipse
+    cull): on phase 6's model and first view, render(fast_binning=False)
+    against the fast path (bit for bit, n_dropped 0, blend_fwd equal to its
+    plain version on the CHUNK-aligned stream); a stage-1 step through the
+    binning path (blend_bwd equal to its plain version, the step twice
+    bit-identical, its gradients against the fast path's); every blend
+    variant on the binning stream against classic; a render and a step
+    under GPT_ELLIPSE_CULL=1 against the same with the cull off (bit for
+    bit, the culled share); cov3d_precomp from the same scales and
+    rotations (bit for bit); tight_rects=False (finite, n_dropped 0); a
+    batched step of 3 against three single renders' gradients summed and
+    one Adam update, and twice bit-identical. Returns the launches of the
+    binning render, binning step and batched step (kernels line rows)."""
+    import copy
+
+    from gaussianprediction_tpu_torch.models.gaussians import get_shs
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.ops import projection as PJ
+    from gaussianprediction_tpu_torch.ops import rasterize as RZ
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train import step as S
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    size = views[0].width
+    T = ((size + 15) // 16) ** 2
+    n = int(rstate.alive.sum())
+    cam0 = views[0].to_device_dict(dev)
+    t0 = torch.tensor(views[0].time, dtype=torch.float32, device=dev)
+    bg_t = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        d = S.deform_for_stage(rstate.params, cfg, rstate, t0, iteration,
+                               None, 1)
+    rargs = (d.xyz, d.scaling, d.rotation, d.opacity, get_shs(rstate.params),
+             cam0, size, size, bg_t)
+    rkw = dict(sh_degree=cfg.model.sh_degree, alive=rstate.alive)
+    mult = cfg.model.capacity_multiplier
+    # the binning path's capacity: the instances and every touched tile's
+    # CHUNK-aligned padding (< 128 slots a tile)
+    mult_b = mult + -(-T * 128 // n) + 1
+
+    def render(**kw):
+        with torch.no_grad():
+            return RZ.render(*rargs, **rkw, **{"capacity_multiplier": mult,
+                                               **kw})
+
+    with Phase("classic path: render(fast_binning=False), first view"):
+        fast = render()
+        with Capture([(rk, "rasterize_binned")]) as cap:
+            slow, got = counted_launches(lambda: render(
+                fast_binning=False, capacity_multiplier=mult_b), dev)
+        add(got)
+        (inst, ts, te, gx, gy, wt), _ = cap.args["rasterize_binned"]
+        same = {k: bits_equal(slow[k], fast[k])
+                for k in ("render", "depth", "alpha")}
+        same["tidx"] = torch.equal(slow["tidx"], fast["tidx"])
+        out = rk.rasterize_binned(inst, ts, te, gx, gy, wt)
+        aux = {}
+        ref = rk.rasterize_binned_plain(inst, ts, te, gx, gy, wt, aux=aux)
+        k_same = bits_equal(out, ref)
+        seg = (te - ts).to(torch.int64)
+        gaps = int((te[:-1] < ts[1:]).sum())
+        ms_fast = time_ms(render, dev, reps)
+        ms_slow = time_ms(lambda: render(fast_binning=False,
+                                         capacity_multiplier=mult_b), dev,
+                          reps)
+        dms = device_ms_of(lambda: rk.rasterize_binned(inst, ts, te, gx, gy,
+                                                       wt), dev, reps)
+        log(f"classic path render: n_dropped {int(slow['n_dropped'])}, "
+            f"{int(seg.sum())} instances in a stream of {inst.shape[1]} "
+            f"slots (multiplier {mult_b}; the fast path's {mult}), {gaps} of "
+            f"{T - 1} tile boundaries with a padding gap; outputs equal to "
+            f"the fast path's bit for bit {same}; blend_fwd on the binning "
+            f"stream equal to its plain version bit for bit {k_same} "
+            f"({cull_share(aux)}), device ms {dms}; ms per render: binning "
+            f"{ms_slow:.3f}, fast {ms_fast:.3f}; launches {got}")
+        if int(slow["n_dropped"]) or not all(same.values()) or not k_same:
+            raise AssertionError("the binning render")
+        if not rehearse and not got.get("blend_fwd"):
+            raise AssertionError("the binning render launched no blend_fwd")
+
+    with Phase("classic path: GPT_ELLIPSE_CULL=1, cov3d_precomp, "
+               "tight_rects=False (first view)"):
+        totals = {}
+
+        def seg_total(name, a, out):
+            st = out if isinstance(out, IS.InstanceStream) else out[0]
+            totals.setdefault(os.environ.get("GPT_ELLIPSE_CULL", "0"),
+                              []).append(int((st.tile_end
+                                              - st.tile_start).sum()))
+
+        with Capture([(IS, "build_instances_fwd")], seg_total):
+            with variant_env({"GPT_ELLIPSE_CULL": "1"}):
+                culled = render()
+                ms_cull = time_ms(render, dev, reps)
+            plain = render()
+        cull_same = all(bits_equal(culled[k], fast[k])
+                        for k in ("render", "depth", "alpha")) and \
+            torch.equal(culled["tidx"], fast["tidx"]) and \
+            bits_equal(plain["render"], fast["render"])
+        share = 1.0 - totals["1"][0] / totals["0"][0]
+        rot_n = d.rotation / torch.linalg.norm(d.rotation, dim=-1,
+                                               keepdim=True)
+        cov = PJ.covariance_from_scaling_rotation(d.scaling, rot_n)
+        via_cov = render(cov3d_precomp=cov)
+        cov_same = all(bits_equal(via_cov[k], fast[k])
+                       for k in ("render", "depth", "alpha"))
+        proj = PJ.project_from_params(d.xyz, d.scaling, rot_n, cam0, size,
+                                      size, alive=rstate.alive)
+        _, _, rw, rh = IS._capped_rect(proj.tiles_min, proj.tiles_max,
+                                       proj.mean2d, 1024)
+        zero = torch.zeros_like(rw)
+        need_l = int(torch.clamp(torch.where(proj.visible, rw * rh, zero),
+                                 min=1).sum())
+        mult_l = -(-int(need_l * 1.1) // n) + 1
+        loose = render(tight_rects=False, capacity_multiplier=mult_l)
+        ms_loose = time_ms(lambda: render(tight_rects=False,
+                                          capacity_multiplier=mult_l), dev,
+                           reps)
+        loose_ok = int(loose["n_dropped"]) == 0 and bool(
+            torch.isfinite(loose["render"]).all())
+        log(f"ellipse cull: {totals['1'][0]} of {totals['0'][0]} instances "
+            f"kept, culled share {share:.4f}; render equal to the uncut "
+            f"render bit for bit {cull_same}; ms per render with the cull "
+            f"{ms_cull:.3f} (without {ms_fast:.3f})")
+        log(f"cov3d_precomp (covariance_from_scaling_rotation of the same "
+            f"scales and rotations): render equal bit for bit {cov_same}")
+        log(f"tight_rects=False: {int(loose['n_instances'])} slots against "
+            f"{int(fast['n_instances'])} tight (multiplier {mult_l}), "
+            f"n_dropped {int(loose['n_dropped'])}, finite "
+            f"{bool(torch.isfinite(loose['render']).all())}, max |render "
+            f"- tight render| {float((loose['render'] - fast['render']).abs().max()):.3e}"
+            f"; ms per render {ms_loose:.3f}")
+        if not (cull_same and 0.0 < share < 1.0 and cov_same and loose_ok):
+            raise AssertionError("the cull, cov3d_precomp or loose rects")
+
+    tcfg, state, opt = ctx["cfg"], ctx["state"], ctx["opt"]
+    cam, gt, t, gen = ctx["cam"], ctx["gt"], ctx["t"], ctx["gen"]
+    it1 = 20_000
+    sh = tcfg.model.sh_degree
+    step1 = S.make_train_step(tcfg, 1, size, size, ctx["extent"], sh, 50,
+                              ctx["bg_t"])
+    bcfg = copy.deepcopy(tcfg)
+    bcfg.model.capacity_multiplier = tcfg.model.capacity_multiplier + \
+        -(-T * 128 // ctx["C"]) + 1
+    bstep = S.make_train_step(bcfg, 1, size, size, ctx["extent"], sh, 50,
+                              ctx["bg_t"])
+    args = lambda: (state, opt, cam, gt, t, it1, gen())  # noqa: E731
+
+    with Phase("classic path: a stage-1 step through the binning path"):
+        with Capture([(IS, "build_instances_bwd")]) as fcap:
+            ref = checked(step1(*args()), "fast step")
+        with classic_binning(), Capture([(rk, "rasterize_binned_bwd"),
+                                         (rk, "rasterize_binned"),
+                                         (IS, "build_instances_bwd")]) as cap:
+            a, got = counted_launches(lambda: checked(bstep(*args()),
+                                                      "binning step"), dev)
+            b = bstep(*args())
+            ms_b = step_ms(bstep, args(), dev, 3)
+        add(got)
+        ms_f = step_ms(step1, args(), dev, 3)
+        twice = bits_equal(a[2]["loss"], b[2]["loss"]) and all(
+            bits_equal(x, y) for x, y in zip(O.tree_leaves(a[0].params),
+                                             O.tree_leaves(b[0].params)))
+        (binst, bts, bte, bgx, bgy, dpix), _ = cap.args["rasterize_binned_bwd"]
+        binst = binst.detach()
+        db = rk.rasterize_binned_bwd(binst, bts, bte, bgx, bgy, dpix)
+        dref = rk.rasterize_binned_bwd_plain(binst, bts, bte, bgx, bgy, dpix,
+                                             sums=wrapper_sums(dev))
+        k_same = bits_equal(db, dref)
+        dms = device_ms_of(lambda: rk.rasterize_binned_bwd(
+            binst, bts, bte, bgx, bgy, dpix), dev, reps)
+        loss_same = bits_equal(a[2]["loss"], ref[2]["loss"])
+        g_bits, g_worst = tree_diff(a[2]["grads"], ref[2]["grads"])
+        # the per-Gaussian reductions of the two streams: the same columns
+        # behind a negative prefix of another length, so the card's
+        # row-wise scan associates them otherwise (phase 10's bound)
+        (gid_f, _, d_f), _ = fcap.args["build_instances_bwd"]
+        srt = d_f[:10].index_select(1, torch.sort(
+            gid_f.to(torch.int32), stable=True).indices)
+        tol = 64 * EPS32 * float(torch.cumsum(srt, dim=1).abs().max())
+        derr = float((cap.out["build_instances_bwd"]
+                      - fcap.out["build_instances_bwd"]).abs().max())
+        log(f"binning step: loss {float(a[2]['loss']):.6f} (the fast path's "
+            f"{float(ref[2]['loss']):.6f}, equal bit for bit {loss_same}); "
+            f"per-Gaussian feature gradients against the fast path's: max "
+            f"|diff| {derr:.3e} (64 * 2^-24 * max |cumsum| {tol:.3e}); leaf "
+            f"gradients equal bit for bit {g_bits} (largest difference "
+            f"{g_worst:.3e} of a leaf's max); run twice identical "
+            f"{twice}; blend_bwd on the binning stream equal to its plain "
+            f"version bit for bit {k_same}, device ms {dms}; ms per step: "
+            f"binning {[round(x, 3) for x in ms_b]}, fast "
+            f"{[round(x, 3) for x in ms_f]}; launches {got}")
+        if not (twice and k_same and loss_same) or not derr <= tol:
+            raise AssertionError("the binning step")
+        if not rehearse and not got.get("blend_bwd"):
+            raise AssertionError("the binning step launched no blend_bwd")
+
+    with Phase("classic path: blend variants on the binning stream"):
+        (finst, fts, fte, fgx, fgy, fwt), _ = cap.args["rasterize_binned"]
+        finst = finst.detach()
+        out_c = rk.rasterize_binned(finst, fts, fte, fgx, fgy, fwt,
+                                    rk.CLASSIC)
+        ok = {}
+        for key, env in VARIANT_ENV.items():
+            with variant_env(env):
+                v = rk.blend_variant()
+            ok[key] = (
+                bits_equal(rk.rasterize_binned(finst, fts, fte, fgx, fgy,
+                                               fwt, v), out_c),
+                bits_equal(rk.rasterize_binned_bwd(binst, bts, bte, bgx,
+                                                   bgy, dpix, variant=v),
+                           db))
+        sync(dev)
+        log(f"variants on the binning stream, (forward, backward) equal to "
+            f"classic bit for bit: {ok}")
+        if not all(all(x) for x in ok.values()):
+            raise AssertionError("a variant differs on the binning stream")
+
+    with Phase("classic path: a stage-1 step under GPT_ELLIPSE_CULL=1"):
+        with variant_env({"GPT_ELLIPSE_CULL": "1"}):
+            c = checked(step1(*args()), "culled step")
+            ms_c = step_ms(step1, args(), dev, 3)
+        same = bits_equal(c[2]["loss"], ref[2]["loss"]) and all(
+            bits_equal(x, y) for x, y in zip(
+                O.tree_leaves([c[0].params, c[1]["m"], c[1]["v"]]),
+                O.tree_leaves([ref[0].params, ref[1]["m"], ref[1]["v"]])))
+        log(f"culled step: loss, params and moments equal to the uncut "
+            f"step's bit for bit {same}; ms per step "
+            f"{[round(x, 3) for x in ms_c]} (uncut {[round(x, 3) for x in ms_f]})")
+        if not same:
+            raise AssertionError("the culled step differs")
+
+    with Phase("classic path: a batched step of 3 (gradient accumulation)"):
+        bviews = views[:3]
+        cams = [cam] + [v.to_device_dict(dev) for v in bviews[1:]]
+        gts = [gt] + [torch.as_tensor(r, device=dev) for r in renders[1:3]]
+        times = [t] + [torch.tensor(v.time, dtype=torch.float32, device=dev)
+                       for v in bviews[1:]]
+        # room for the other two views' slots
+        acfg = copy.deepcopy(tcfg)
+        acfg.model.capacity_multiplier = tcfg.model.capacity_multiplier * 1.25
+        batched = S.make_train_step_batched(acfg, 1, size, size,
+                                            ctx["extent"], sh, 50,
+                                            ctx["bg_t"], 3)
+        bargs = lambda: (state, opt, cams, gts, times, it1, gen())  # noqa
+        x, got = counted_launches(lambda: checked(batched(*bargs()),
+                                                  "batched step"), dev)
+        add(got)
+        y = batched(*bargs())
+        twice = bits_equal(x[2]["loss"], y[2]["loss"]) and all(
+            bits_equal(p, q) for p, q in zip(O.tree_leaves(x[0].params),
+                                             O.tree_leaves(y[0].params)))
+        # three single renders' gradients, summed, and one Adam update
+        loss_and_grads, _ = S._step_parts(acfg, 1, size, size,
+                                          ctx["extent"], sh, ctx["bg_t"])
+        g = gen()
+        total = None
+        for j in range(3):
+            tj = S.time_with_noise(acfg, times[j], it1 + j, g, 1, 50)
+            gj = loss_and_grads(state, cams[j], gts[j], tj, it1 + j, g, None,
+                                None)[1]
+            total = gj if total is None else O.tree_map(torch.add, total, gj)
+        with torch.no_grad():
+            manual, _ = O.adam_step(state.params, total, opt, acfg, 1,
+                                    ctx["extent"], it1 + 2)
+        bits, worst = tree_diff(x[0].params, manual)
+        ms_batch = step_ms(batched, bargs(), dev, 3)
+        log(f"batched step: loss {float(x[2]['loss']):.6f} (3 renders); "
+            f"params equal to three single renders' gradients summed and "
+            f"one Adam update: bit for bit {bits}, largest difference "
+            f"{worst:.3e} of a leaf's max; run twice identical {twice}; ms "
+            f"per batched step {[round(v, 3) for v in ms_batch]} (a single "
+            f"step {[round(v, 3) for v in ms_f]}); launches {got}")
+        if not twice or worst > 1e-6:
+            raise AssertionError("the batched step")
+        if not rehearse and got.get("blend_bwd") != 3:
+            raise AssertionError("the batched step did not run 3 backwards")
+    return launches
+
+
+HYPER_SIZE = (960, 540)      # a HyperNeRF interp capture's rgb/2x frames
+
+
+def hyper_argv(scene: str, model: str, rehearse: bool, batch: int):
+    """cli.train's argv for the HyperNeRF tree: the chickchicken preset (on
+    the CPU rehearsal the `test` preset with --use_time_decay), --ratio 0.5
+    (rgb/2x), the every-4th-frame split (max_time 1), and cli_argv's
+    schedule compressed onto 6u iterations; --batch as given."""
+    argv = cli_argv(scene, model, rehearse)
+    i = argv.index("--max_time")
+    del argv[i:i + 2]
+    argv[argv.index("--preset") + 1] = "test" if rehearse else "chickchicken"
+    argv += ["--ratio", "0.5", "--batch", str(batch)]
+    if rehearse:
+        argv.append("--use_time_decay")
+    return argv
+
+
+def hyper_schedule(cfg, u: int, model_path: str):
+    """The fields hyper_argv's flags set, onto 6u iterations, for an
+    in-process Trainer, and the gate of step opacity
+    (cfg.model.step_opacity_iteration, which no flag sets) moved to u, so
+    that the gated opacity trains from stage 1 on."""
+    t, o = cfg.train, cfg.opt
+    o.iterations = 6 * u
+    o.position_lr_max_steps = 4 * u
+    o.densify_from_iter, o.densify_until_iter = u, 3 * u + 1
+    t.jointly_iteration = u // 2
+    t.second_stage_iteration, t.third_stage_iteration = 3 * u, 9 * u // 2
+    t.adaptive_from_iter, t.adaptive_interval = u // 5, u // 2
+    t.test_iterations = (u // 10, 3 * u, 6 * u)
+    t.save_iterations = t.checkpoint_iterations = ()
+    cfg.model.step_opacity_iteration = u
+    cfg.model_path = model_path
+
+
+def stage_ms(rec, dev):
+    """{stage: [ms an iteration]} from (stage, start, end, iterations)."""
+    out = {}
+    for st, e0, e1, k in rec:
+        ms = e0.elapsed_time(e1) if dev.type == "cuda" else (e1 - e0) * 1e3
+        out.setdefault(st, []).extend([ms / k] * k)
+    return out
+
+
+class timed_iterations:
+    """Records (stage, start, end, iterations) of every Trainer.train_one
+    and train_batch call in the block (CUDA events on the card)."""
+
+    def __init__(self, dev, rec):
+        self.dev, self.rec = dev, rec
+
+    def __enter__(self):
+        from gaussianprediction_tpu_torch.train import loop as L
+
+        self.saved = (L.Trainer.train_one, L.Trainer.train_batch)
+        dev, rec = self.dev, self.rec
+
+        def mark():
+            if dev.type == "cuda":
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                return e
+            return time.perf_counter()
+
+        def one(tr, it, _f=self.saved[0]):
+            e0 = mark()
+            m = _f(tr, it)
+            rec.append((L.stage_of(tr.cfg, it), e0, mark(), 1))
+            return m
+
+        def batch(tr, a, b, _f=self.saved[1]):
+            e0 = mark()
+            m = _f(tr, a, b)
+            rec.append((L.stage_of(tr.cfg, a), e0, mark(), b - a + 1))
+            return m
+
+        L.Trainer.train_one, L.Trainer.train_batch = one, batch
+        return self
+
+    def __exit__(self, *exc):
+        from gaussianprediction_tpu_torch.train import loop as L
+
+        L.Trainer.train_one, L.Trainer.train_batch = self.saved
+        return False
+
+
+def repeat_identical(tr, dev, batch: int) -> bool:
+    """One stage-3 step of the Trainer's final state (batch > 1: its
+    batched step over the first `batch` training views) run twice from the
+    same state with the same draws: loss, params and moments bit for bit."""
+    from gaussianprediction_tpu_torch.train import optimizer as O
+
+    views = [tr._view(c) for c in tr.scene.train_cameras[:batch]]
+    it = tr.iteration
+    outs = []
+    for _ in range(2):
+        g = torch.Generator(dev).manual_seed(7)
+        noises = [torch.randn(tr.state.params["super_xyz"].shape,
+                              generator=g, device=dev) for _ in views]
+        tns = [torch.randn((), generator=g, device=dev) for _ in views] \
+            if tr.cfg.train.use_time_decay else None
+        if batch > 1:
+            outs.append(tr._batched_step_fn(3, batch)(
+                tr.state, tr.opt_state, [v[0] for v in views],
+                [v[2] for v in views], [v[1] for v in views], it,
+                active_deg=tr.active_sh_degree, noises=noises,
+                time_noises=tns))
+        else:
+            cam_d, t, gt = views[0]
+            outs.append(tr._step_fn(3)(
+                tr.state, tr.opt_state, cam_d, gt, t, it,
+                active_deg=tr.active_sh_degree, noise=noises[0],
+                time_noise=None if tns is None else tns[0]))
+    sync(dev)
+    (s1, o1, m1), (s2, o2, m2) = outs
+    checked(outs[0], "a repeated stage-3 step")
+    return bits_equal(m1["loss"], m2["loss"]) and all(
+        bits_equal(x, y) for x, y in zip(
+            O.tree_leaves([s1.params, o1["m"], o1["v"]]),
+            O.tree_leaves([s2.params, o2["m"], o2["v"]])))
+
+
+def hypernerf_phases(dev, seed: int, rehearse: bool):
+    """Phase 'HyperNeRF': phase 18's synthetic dynamic scene rendered at a
+    HyperNeRF interp capture's rgb/2x size (960x540; the rehearsal 64x36)
+    and written as a HyperNeRF tree (data/hypernerf.py:write_hypernerf);
+    loaded back, every image equal to the written bytes / 255 bit for bit
+    and the every-4th-frame split (6 train / 5 test of 23); then
+    cli.train --preset chickchicken --batch 2 (use_time_decay; batches of
+    2 wherever no host event falls inside) and cli.eval, and an in-process
+    `lemon` Trainer (step opacity gated on from iteration u), each through
+    stages 0-3 on hyper_argv's schedule: n_dropped 0 on every stream, the
+    test PSNR rising from the first report to the last, a stage-3 step
+    (the batched one for chickchicken) run twice bit-identical, ms per
+    iteration per stage. Returns the launches of the two runs and
+    cli.eval."""
+    import copy
+    import shutil
+    import tempfile
+
+    from gaussianprediction_tpu_torch.cli import eval as CE
+    from gaussianprediction_tpu_torch.cli import train as CT
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.data.hypernerf import write_hypernerf
+    from gaussianprediction_tpu_torch.data.scene import (
+        Scene, load_scene_info, synthetic_scene_info,
+    )
+    from gaussianprediction_tpu_torch.models import deform as D
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.train import loop as L
+
+    u = 10 if rehearse else 100
+    (w, h), n_pts = ((64, 36), 300) if rehearse else (HYPER_SIZE, 100_000)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="gpt_hyper_", dir=BUILD_DIR)
+    scene, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    launches = {}
+    saved_env = os.environ.pop("GPT_FORCE_CPU", None)
+    if rehearse:
+        os.environ["GPT_FORCE_CPU"] = "1"
+
+    def run(fn, what):
+        """fn() with its launches added up and every stream's n_dropped
+        checked."""
+        drops = []
+
+        def note(name, a, out):
+            st = out if isinstance(out, IS.InstanceStream) else out[0]
+            drops.append(st.n_dropped)
+
+        with Capture([(IS, "build_instances_fwd")], note):
+            out, got = counted_launches(fn, dev)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        drops = [int(x) for x in drops]
+        log(f"HyperNeRF {what}: launches {got}; {len(drops)} instance "
+            f"streams, n_dropped {sum(drops)}")
+        if any(drops):
+            raise AssertionError(f"HyperNeRF {what}: a stream dropped")
+        if not rehearse:
+            need = CLI_KERNELS if what != "eval" else FWD_KERNELS
+            missing = [k for k in need if not got.get(k)]
+            if missing:
+                raise AssertionError(f"HyperNeRF {what}: not launched "
+                                     f"{missing}")
+        return out
+
+    def report(tr, rec, what):
+        per = stage_ms(rec, dev)
+        psnrs = [(h["eval"]["iter"], round(h["eval"]["test_psnr"], 3))
+                 for h in tr._history if "eval" in h]
+        same = repeat_identical(tr, dev, max(1, tr.cfg.train.batch))
+        log(f"HyperNeRF {what}: {tr.iteration} iterations; ms per iteration "
+            f"(CUDA events around train_one / train_batch, a batch's time "
+            f"split evenly), " + "; ".join(
+                f"stage {k}: median {float(np.median(v)):.3f} over {len(v)}"
+                for k, v in sorted(per.items()))
+            + f"; test PSNR at the reports {psnrs}; {int(tr.state.n_alive())}"
+            f" Gaussians, {int(tr.state.n_kpts())} keypoints; a stage-3 "
+            f"step run twice identical {same}")
+        fails = []
+        if sorted(per) != [0, 1, 2, 3]:
+            fails.append(f"stages {sorted(per)}")
+        if not psnrs or not psnrs[-1][1] > psnrs[0][1]:
+            fails.append("the test PSNR did not rise")
+        if not same:
+            fails.append("a repeated step differs")
+        if fails and not (rehearse and fails == ["the test PSNR did not "
+                                                 "rise"]):
+            raise AssertionError(f"HyperNeRF {what}: {fails}")
+
+    try:
+        with Phase("HyperNeRF: write the scene as a HyperNeRF tree"):
+            info = synthetic_scene_info(n_points=n_pts, n_cams=20, n_test=3,
+                                        width=w, height=h, dynamic=True,
+                                        seed=seed, device=dev)
+            cams = sorted(info.train_cameras + info.test_cameras,
+                          key=lambda c: c.time)
+            write_hypernerf(scene, cams, info.points, info.colors)
+            cfg = get_preset("chickchicken")
+            cfg.source_path, cfg.ratio = scene, 0.5
+            bad = []
+            for lazy in (True, False):
+                li = load_scene_info(cfg, lazy=lazy)
+                for c in li.train_cameras + li.test_cameras:
+                    src = cams[int(c.image_name)]
+                    u8 = (np.clip(src.image, 0.0, 1.0) * 255).astype(np.uint8)
+                    if c.time != src.time or not bits_equal(
+                            torch.from_numpy(c.load_image()),
+                            torch.from_numpy(u8.astype(np.float32) / 255.0)):
+                        bad.append((lazy, c.image_name))
+            split = ([c.image_name for c in li.train_cameras],
+                     [c.image_name for c in li.test_cameras])
+            want = ([f"{i:06d}" for i in range(0, 23, 4)],
+                    [f"{i:06d}" for i in range(2, 22, 4)])
+            log(f"HyperNeRF tree: {len(cams)} frames at {w}x{h} (rgb/2x), "
+                f"{n_pts} points; split {len(split[0])} train / "
+                f"{len(split[1])} test, every 4th frame {split == want}; "
+                f"images equal to the written bytes / 255 bit for bit "
+                f"(lazy and eager) {not bad}")
+            if bad or split != want:
+                raise AssertionError(f"HyperNeRF tree: {bad}, {split}")
+            del li
+
+        with Phase("HyperNeRF: cli.train --preset chickchicken --batch 2"):
+            argv = hyper_argv(scene, model, rehearse, 2)
+            log("HyperNeRF train argv: " + " ".join(argv[4:]))
+            rec = []
+            with timed_iterations(dev, rec):
+                tr = run(lambda: CT.main(argv), "chickchicken")
+            batched = sum(1 for r in rec if r[3] > 1)
+            log(f"HyperNeRF chickchicken: {batched} batched steps of 2, "
+                f"{len(rec) - batched} single iterations; use_time_decay "
+                f"{tr.cfg.train.use_time_decay}")
+            if not batched or not tr.cfg.train.use_time_decay and \
+                    not rehearse:
+                raise AssertionError("no batched step or no time decay")
+            report(tr, rec, "chickchicken")
+            del tr
+
+        with Phase("HyperNeRF: cli.eval"):
+            res = run(lambda: CE.main(["-m", model]), "eval")
+            with open(os.path.join(res["out_dir"], "results.json")) as f:
+                psnr = json.load(f)["PSNR"]
+            log(f"HyperNeRF eval: {1e3 / res['fps']:.3f} ms per test view, "
+                f"PSNR {psnr}")
+            if not np.isfinite(psnr):
+                raise AssertionError("HyperNeRF eval: PSNR")
+
+        with Phase("HyperNeRF: a lemon Trainer, step opacity on from u"):
+            cfg = get_preset("test" if rehearse else "lemon")
+            if rehearse:
+                cfg.model.step_opacity = cfg.train.use_time_decay = True
+            hyper_schedule(cfg, u, "")
+            cfg.source_path, cfg.ratio = scene, 0.5
+            lscene = Scene(load_scene_info(cfg, lazy=True), seed=seed)
+            tr = L.Trainer(copy.deepcopy(cfg), lscene, seed=seed, device=dev,
+                           log_every=u // 2, quiet=True)
+            rec, gated = [], []
+            try:
+                with timed_iterations(dev, rec), \
+                        Capture([(D, "sharp_sigmoid")],
+                                lambda *a: gated.append(1)):
+                    run(tr.run, "lemon")
+            finally:
+                lscene.close()
+            log(f"HyperNeRF lemon: step opacity from iteration "
+                f"{cfg.model.step_opacity_iteration + 1} (the preset's gate "
+                f"{get_preset('lemon').model.step_opacity_iteration}); the "
+                f"gated opacity evaluated {len(gated)} times")
+            if not gated:
+                raise AssertionError("the gated opacity never ran")
+            report(tr, rec, "lemon")
+            del tr
+    finally:
+        os.environ.pop("GPT_FORCE_CPU", None)
+        if saved_env is not None:
+            os.environ["GPT_FORCE_CPU"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"HyperNeRF: launches of the two runs and cli.eval {launches}")
     return launches
 
 
@@ -2760,6 +3475,9 @@ def main() -> int:
     res.update(vres)
     launches.update(vlaunches)
     device_ms.update(vdevice_ms)
+    for k, v in classic_phases(cfg, dev, state, iteration, views, renders,
+                               ctx, args.rehearse, reps).items():
+        launches[k] = launches.get(k, 0) + v
     sres, slaunches, sdevice_ms = stage23_phases(ctx, dev, args.seed,
                                                  args.rehearse, reps)
     res.update(sres)
@@ -2777,8 +3495,10 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + glaunches.get(k, 0)
     del tr
     claunches = cli_phases(info, dev, args.seed, args.rehearse)
+    hlaunches = hypernerf_phases(dev, args.seed, args.rehearse)
     for k in CLI_KERNELS:
-        launches[k] = launches.get(k, 0) + claunches.get(k, 0)
+        launches[k] = launches.get(k, 0) + claunches.get(k, 0) + \
+            hlaunches.get(k, 0)
 
     line = {"kernels": [
         {

@@ -11,8 +11,8 @@ reproduce the reference's training scripts; any flag overrides the preset.
 The flags, their defaults and the resolved config are train.py's: the same
 argv gives the same cfg.json, written to the model dir. Runs on the card
 (GPT_FORCE_CPU=1: on the CPU). Flags whose path the port lacks raise
-NotImplementedError naming their ROADMAP.md item: --batch > 1,
---n_devices > 1, --steps_per_call > 1 and --profile_steps > 0.
+NotImplementedError naming their ROADMAP.md item: --n_devices > 1,
+--steps_per_call > 1 and --profile_steps > 0.
 """
 from __future__ import annotations
 
@@ -57,14 +57,12 @@ def build_parser():
     p.add_argument("--test_iterations", nargs="+", type=int, default=None)
     p.add_argument("--weight_encoder", default=None,
                    choices=("hashgrid", "fourier", "brick"),
-                   help="stage-2/3 blend-weight encoder; the port has "
-                        "'hashgrid' (ROADMAP.md Queue 1 item 3)")
+                   help="stage-2/3 blend-weight encoder")
     p.add_argument("--distill_init_steps", type=int, default=None,
                    help=">0: pre-fit the blend-weight model at the stage-2 "
-                        "transition (not ported: ROADMAP.md Queue 1 item 3)")
+                        "transition")
     p.add_argument("--batch", type=int, default=None,
-                   help="gradient accumulation: renders per optimizer step "
-                        "(not ported: ROADMAP.md Queue 1 item 4)")
+                   help="gradient accumulation: renders per optimizer step")
     p.add_argument("--n_devices", type=int, default=1,
                    help=">1: the sharded multi-device train path (not "
                         "ported: ROADMAP.md Queue 1 item 8)")
@@ -125,7 +123,6 @@ def refuse_unported(cfg, args) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for a setting
     whose path the port lacks."""
     refused = [
-        (cfg.train.batch > 1, "--batch > 1 (gradient accumulation)", 4),
         (args.n_devices > 1, "--n_devices > 1 (the sharded step)", 8),
         (args.steps_per_call > 1,
          "--steps_per_call > 1 (several steps per device call)", 1),

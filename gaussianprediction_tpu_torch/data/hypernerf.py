@@ -13,6 +13,9 @@ readHyperDataInfos (dataset_readers.py:284-308):
   prediction split;
 - the initial point cloud comes from points3D_downsample.ply produced by
   the COLMAP prep pipeline (tools/prepare_hypernerf.py).
+
+write_hypernerf writes cameras that hold their images as such a tree
+(no CLI calls it; it lets a synthetic scene take the HyperNeRF path).
 """
 from __future__ import annotations
 
@@ -153,3 +156,52 @@ def read_hyper_scene(datadir: str, max_time: float = 1.0,
         test_cameras=test, render_cameras=test, ply_path=ply_path,
         total_frame=len(all_img),
     )
+
+
+def write_hypernerf(path: str, cameras: List[Camera], points: np.ndarray,
+                    colors: np.ndarray, ratio: float = 0.5) -> None:
+    """Write cameras that hold their images, in time order, as a HyperNeRF
+    tree that read_hyper_scene reads back at `ratio`: frame i is named
+    f"{i:06d}", its warp_id i (so its time is i / (n - 1) when the times
+    are evenly spaced); dataset.json (no val_ids: the every-4th-frame
+    split), metadata.json, scene.json, camera/<name>.json (the pinhole
+    Nerfies model at the full resolution, the image size / ratio),
+    rgb/<1/ratio>x/<name>.png (8-bit RGB) and points3D_downsample.ply
+    from the points and their colours in [0, 1]."""
+    from gaussianprediction_tpu_torch.data import image_io
+    from gaussianprediction_tpu_torch.utils.camera import fov2focal
+    from gaussianprediction_tpu_torch.utils.ply import store_point_cloud
+
+    names = [f"{i:06d}" for i in range(len(cameras))]
+    scale_dir = os.path.join(path, "rgb", f"{int(1 / ratio)}x")
+    os.makedirs(scale_dir, exist_ok=True)
+    os.makedirs(os.path.join(path, "camera"), exist_ok=True)
+    for name, cam in zip(names, cameras):
+        img = np.asarray(cam.image, np.float32)
+        image_io.write_png(os.path.join(scale_dir, f"{name}.png"),
+                           (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
+        w0, h0 = cam.width / ratio, cam.height / ratio
+        R = np.asarray(cam.R, np.float64)
+        with open(os.path.join(path, "camera", f"{name}.json"), "w") as f:
+            json.dump({
+                "orientation": R.T.tolist(),
+                "position": (-np.asarray(cam.T, np.float64) @ R.T).tolist(),
+                "focal_length": fov2focal(cam.fovx, w0),
+                "principal_point": [w0 / 2.0, h0 / 2.0],
+                "skew": 0.0, "pixel_aspect_ratio": 1.0,
+                "radial_distortion": [0.0, 0.0, 0.0],
+                "tangential_distortion": [0.0, 0.0],
+                "image_size": [int(round(w0)), int(round(h0))],
+            }, f)
+    with open(os.path.join(path, "dataset.json"), "w") as f:
+        json.dump({"count": len(names), "num_exemplars": len(names),
+                   "ids": names}, f)
+    with open(os.path.join(path, "metadata.json"), "w") as f:
+        json.dump({n: {"warp_id": i, "appearance_id": i, "camera_id": 0}
+                   for i, n in enumerate(names)}, f)
+    with open(os.path.join(path, "scene.json"), "w") as f:
+        json.dump({"scale": 1.0, "center": [0.0, 0.0, 0.0], "near": 0.1,
+                   "far": 10.0}, f)
+    store_point_cloud(os.path.join(path, "points3D_downsample.ply"),
+                      np.asarray(points, np.float32),
+                      np.clip(np.asarray(colors), 0.0, 1.0) * 255)

@@ -73,19 +73,27 @@ def evaluate_pairs(renders: List[np.ndarray], gts: List[np.ndarray],
 
 
 def write_error_maps(renders, gts, deltas_dir: str):
-    """Per-image |render - gt| x 255 maps, deltas/{idx:05d}.jpg (.png
-    where imageio has no JPEG writer)."""
-    import imageio.v2 as imageio
+    """Per-image |render - gt| x 255 maps, deltas/{idx:05d}.jpg through
+    imageio (.png where it has no JPEG writer); where imageio is absent,
+    .png through data/image_io.write_png."""
+    from gaussianprediction_tpu_torch.data.image_io import write_png
 
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        imageio = None
     os.makedirs(deltas_dir, exist_ok=True)
     for idx, (r, g) in enumerate(zip(renders, gts)):
         err = np.abs(np.asarray(r, np.float32) - np.asarray(g, np.float32))
         u8 = (np.clip(err, 0.0, 1.0) * 255).astype(np.uint8)
-        path = os.path.join(deltas_dir, f"{idx:05d}.jpg")
+        png = os.path.join(deltas_dir, f"{idx:05d}.png")
+        if imageio is None:
+            write_png(png, u8)
+            continue
         try:
-            imageio.imwrite(path, u8)
+            imageio.imwrite(os.path.join(deltas_dir, f"{idx:05d}.jpg"), u8)
         except (ValueError, OSError):  # no JPEG plugin in this environment
-            imageio.imwrite(os.path.join(deltas_dir, f"{idx:05d}.png"), u8)
+            imageio.imwrite(png, u8)
 
 
 def _load_dir(d: str, files: List[str], resize_ratio: float):

@@ -279,3 +279,46 @@ def save_ply(state: GaussianState, path: str):
             order.append(f"{name}_{i}")
     arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
     ply.write_ply(path, arrays, order=order)
+
+
+def load_ply_params(path: str, cfg: Config, device=None):
+    """A reference-layout Gaussian PLY (save_ply's) read into
+    capacity-padded params and the alive mask, as the JAX package's
+    load_ply_params reads it: the file's n rows first, the rest dead
+    (zeros, opacity -15). Returns (params, alive) on `device` (None: the
+    card)."""
+    from gaussianprediction_tpu_torch.device import resolve_device
+    from gaussianprediction_tpu_torch.utils import ply
+
+    dev = resolve_device(device)
+    v = ply.read_ply(path)
+    n = len(v["x"])
+    C = cfg.model.padded_capacity()
+    B = (cfg.model.sh_degree + 1) ** 2
+
+    def padded(a, shape):
+        out = np.zeros((C,) + shape, np.float32)
+        out[:n] = a
+        return out
+
+    def stacked(prefix, k):
+        return np.stack([v[f"{prefix}_{i}"] for i in range(k)], 1)
+
+    n_dc = len([k for k in v if k.startswith("f_dc_")])
+    n_rest = len([k for k in v if k.startswith("f_rest_")])
+    f_dc = stacked("f_dc", n_dc).reshape(n, 3, 1).transpose(0, 2, 1)
+    f_rest = stacked("f_rest", n_rest).reshape(n, 3, B - 1).transpose(0, 2,
+                                                                      1)
+    # the JAX twin adds 0 to the live rows and -15 to the dead ones
+    dead = np.where(np.arange(C)[:, None] < n, np.float32(0.0),
+                    np.float32(-15.0))
+    out = {
+        "xyz": padded(np.stack([v["x"], v["y"], v["z"]], 1), (3,)),
+        "features_dc": padded(f_dc, (1, 3)),
+        "features_rest": padded(f_rest, (B - 1, 3)),
+        "opacity": padded(v["opacity"][:, None], (1,)) + dead,
+        "scaling": padded(stacked("scale", 3), (3,)),
+        "rotation": padded(stacked("rot", 4), (4,)),
+    }
+    params = {k: torch.as_tensor(a, device=dev) for k, a in out.items()}
+    return params, torch.arange(C, device=dev) < n

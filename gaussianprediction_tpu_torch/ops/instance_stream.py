@@ -5,8 +5,9 @@ Torch twin of gaussianprediction_tpu/ops/instance_stream.py
 _capped_rect, probe_slot_need). The forward:
 
 1. every Gaussian's tile rect is capped to <= max_tiles tiles (a centred
-   sub-rect), and every Gaussian owns >= 1 slot: empty ones get one
-   singleton slot that is emitted invalid and sorts past every segment;
+   sub-rect), and every Gaussian owns >= 1 slot: empty ones (an empty
+   rect, or one of width but no height) get one singleton slot that is
+   emitted invalid and sorts past every segment;
 2. slot offsets are the exclusive cumsum of the per-Gaussian slot counts;
 3. the stack kernel builds the [16, N] permat in original order, and the
    expand kernel expands it to one column per slot with the rect walk's
@@ -21,6 +22,14 @@ _capped_rect, probe_slot_need). The forward:
    equal to +0.0, NaNs equal and last), so the order inside segments is
    the JAX package's bit for bit;
 6. the interleave kernel assembles the sorted [16, P] instance SoA.
+
+GPT_ELLIPSE_CULL=1 (ellipse_cull_on, cull_weak_key) re-keys, between 3
+and 5, every instance that cannot reach alpha 1/255 anywhere in its tile
+to the sentinel tile; the segment bounds then come from a searchsorted
+over the sorted keys. A culled slot keeps its gid (and its kept count):
+it lies outside every segment, so its cotangent is zero, and the
+backward sorts it back into its rect position (build_instances_bwd's
+slot), so the gradients keep the uncut stream's bits.
 
 Capacity policy (the JAX package's): slots >= capacity are invalid;
 n_dropped counts rect-capping losses plus slots past capacity. The buffer
@@ -117,14 +126,65 @@ def orderable_bits(z):
     return u.to(torch.int64) & 0xFFFFFFFF
 
 
+def ellipse_cull_on() -> bool:
+    """GPT_ELLIPSE_CULL=1, read at each call as the JAX package reads it at
+    trace time: build_instances_fwd re-keys to the sentinel tile every
+    (instance, tile) pair whose maximum alpha over the tile's pixel box
+    stays under 1/255, pairs the blend skips at every pixel. The test is
+    conservative, so renders and gradients keep their bits. Off by
+    default."""
+    return os.environ.get("GPT_ELLIPSE_CULL", "0") == "1"
+
+
+def cull_weak_key(rows, key, grid_x: int, sentinel: int):
+    """The JAX _cull_weak_key: `key` [P] (tile ids, `sentinel` for unused
+    slots) with every instance that can never contribute to its tile
+    re-keyed to `sentinel`. rows: the emitted channel rows (mx, my, ca,
+    cb, cc, op first). Q(d) = 0.5 ca dx^2 + cb dx dy + 0.5 cc dy^2 is
+    minimized over the tile's continuous pixel box (0 when the mean lies
+    inside, else on one of the four edges, each a 1-d quadratic); the
+    instance stays iff op exp(-Qmin) could reach 1/255, in the log domain
+    with a margin of 1e-3."""
+    mx, my, ca, cb, cc, op = (rows[c] for c in range(6))
+    ty = torch.div(key, grid_x, rounding_mode="floor")
+    tx = key - ty * grid_x
+    u0 = tx.to(torch.float32) * TILE - mx          # dx over [u0, u1]
+    u1 = u0 + (TILE - 1)
+    v0 = ty.to(torch.float32) * TILE - my
+    v1 = v0 + (TILE - 1)
+    inside = (u0 <= 0) & (u1 >= 0) & (v0 <= 0) & (v1 >= 0)
+    ca_s = torch.clamp(ca, min=1e-12)
+    cc_s = torch.clamp(cc, min=1e-12)
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    def edge_x(X):
+        dy = clip(-cb * X / cc_s, v0, v1)
+        return 0.5 * cc * dy * dy + cb * X * dy + 0.5 * ca * X * X
+
+    def edge_y(Y):
+        dx = clip(-cb * Y / ca_s, u0, u1)
+        return 0.5 * ca * dx * dx + cb * Y * dx + 0.5 * cc * Y * Y
+
+    qmin = torch.minimum(torch.minimum(edge_x(u0), edge_x(u1)),
+                         torch.minimum(edge_y(v0), edge_y(v1)))
+    qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
+    thresh = torch.log(torch.clamp(op, min=1e-12) * 255.0) + 1e-3
+    keep = (key < sentinel) & (qmin <= thresh)
+    return torch.where(keep, key, torch.full_like(key, sentinel))
+
+
 def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
                         grid_y: int, capacity: int, max_tiles: int = 1024,
                         with_kept: bool = False):
     """feat: [N, 10] (mx, my, ca, cb, cc, op, r, g, b, z); channel 9, z, is
     the depth that orders instances inside a tile. Returns the
-    InstanceStream, and with with_kept=True also the [N] int32 counts of
-    each Gaussian's slots that stayed under capacity (the backward's run
-    lengths)."""
+    InstanceStream, and with with_kept=True (stream, kept, slot): kept the
+    [N] int32 counts of each Gaussian's slots that stayed under capacity
+    (the backward's run lengths), slot the [P] int32 emitted slot of each
+    stream column (the backward's tie-break under the ellipse cull,
+    build_instances_bwd)."""
     N = feat.shape[0]
     dev = feat.device
     num_tiles = grid_x * grid_y
@@ -133,7 +193,12 @@ def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
     x0c, y0c, rw0, rh0 = _capped_rect(tiles_min, tiles_max, feat[:, 0:2],
                                       max_tiles)
     zero = torch.zeros_like(rw0)
-    rw = torch.where(visible, rw0, zero)
+    # a rect with width but no height holds no instance: its rw goes to 0
+    # too, so the expand kernel emits its singleton slot invalid, as an
+    # empty Gaussian's (the JAX package keeps rw there and emits the slot
+    # as a real instance of tile (x0, y0) that no kept count holds: ROADMAP
+    # "Found in the reference")
+    rw = torch.where(visible & (rh0 > 0), rw0, zero)
     rh = torch.where(visible, rh0, zero)
     gidx = torch.arange(N, dtype=i32, device=dev)
 
@@ -156,20 +221,26 @@ def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
     emitted = expand.expand_emit(permat, offsets, total, cap_buf, grid_x,
                                  num_tiles)          # [12, cap_buf]
 
-    # per-tile counts from the separable rects (exact in f32 below 2^24)
-    tyv = torch.arange(grid_y, dtype=i32, device=dev)[None, :]
-    txv = torch.arange(grid_x, dtype=i32, device=dev)[None, :]
-    live = ((rw > 0) & (rh > 0))[:, None]
-    r_ind = ((y0c[:, None] <= tyv) & (tyv < (y0c + rh)[:, None])
-             & live).to(torch.float32)               # [N, gy]
-    c_ind = ((x0c[:, None] <= txv)
-             & (txv < (x0c + rw)[:, None])).to(torch.float32)  # [N, gx]
-    counts_t = (r_ind.T @ c_ind).to(i32).reshape(-1)  # [T]
+    rows = emitted[:11]
+    key = emitted[11].to(torch.int64)
+    cull = ellipse_cull_on()
+    if cull:
+        key = cull_weak_key(rows, key, grid_x, num_tiles)
+    else:
+        # per-tile counts from the separable rects (exact in f32 below
+        # 2^24); culled keys break that product, so with the cull on the
+        # bounds come from the sorted keys instead
+        tyv = torch.arange(grid_y, dtype=i32, device=dev)[None, :]
+        txv = torch.arange(grid_x, dtype=i32, device=dev)[None, :]
+        live = ((rw > 0) & (rh > 0))[:, None]
+        r_ind = ((y0c[:, None] <= tyv) & (tyv < (y0c + rh)[:, None])
+                 & live).to(torch.float32)               # [N, gy]
+        c_ind = ((x0c[:, None] <= txv)
+                 & (txv < (x0c + rw)[:, None])).to(torch.float32)  # [N, gx]
+        counts_t = (r_ind.T @ c_ind).to(i32).reshape(-1)  # [T]
 
     # rounding pad (sentinel key, z = 3e38, gid -1), then ONE stable sort
     Pp = _round_up(cap_buf, ILV_BLK)
-    rows = emitted[:11]
-    key = emitted[11].to(torch.int64)
     if Pp > cap_buf:
         pad = torch.zeros((11, Pp - cap_buf), dtype=torch.float32,
                           device=dev)
@@ -179,13 +250,22 @@ def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
         key = torch.cat([key, torch.full((Pp - cap_buf,), num_tiles,
                                          dtype=torch.int64, device=dev)])
     key64 = (key << 32) | orderable_bits(rows[9])
-    perm = torch.sort(key64, stable=True).indices
+    skey, perm = torch.sort(key64, stable=True)
     srt = rows.index_select(1, perm)                 # [11, Pp]
     inst = expand.interleave_rows([srt[c] for c in range(11)])
 
-    pstart = torch.cumsum(counts_t, 0) - counts_t
-    tile_start = torch.clamp(pstart, max=Pp).to(i32)
-    tile_end = torch.clamp(pstart + counts_t, max=Pp).to(i32)
+    if cull:
+        # bounds[t]: the first slot keyed >= t; the segments stay ordered
+        # and contiguous, the culled and sentinel slots past all of them
+        bounds = torch.searchsorted(
+            skey >> 32, torch.arange(num_tiles + 1, dtype=torch.int64,
+                                     device=dev)).to(i32)
+        tile_start = torch.clamp(bounds[:-1], max=Pp)
+        tile_end = torch.clamp(bounds[1:], max=Pp)
+    else:
+        pstart = torch.cumsum(counts_t, 0) - counts_t
+        tile_start = torch.clamp(pstart, max=Pp).to(i32)
+        tile_end = torch.clamp(pstart + counts_t, max=Pp).to(i32)
 
     area_full = torch.where(
         visible,
@@ -206,7 +286,7 @@ def build_instances_fwd(feat, tiles_min, tiles_max, visible, grid_x: int,
         - torch.clamp(offsets, max=capacity),
         zero,
     ).to(i32)
-    return stream, kept
+    return stream, kept, perm.to(i32)
 
 
 def reduce_mode() -> str:
@@ -218,14 +298,26 @@ def reduce_mode() -> str:
     return mode
 
 
-def build_instances_bwd(gid_row, kept, d_inst, mode=None):
+def build_instances_bwd(gid_row, kept, d_inst, mode=None, slot=None):
     """Per-Gaussian gradients [N, 10] from the instance cotangent d_inst
     [16, P]. gid_row: the stream's sorted gid row (inst[10], -1 for
-    invalid slots); kept: [N] int32 kept slot counts."""
+    invalid slots); kept: [N] int32 kept slot counts; slot (optional):
+    each column's emitted slot, the tie-break inside a Gaussian's run in
+    place of the stream position. Under the ellipse cull a Gaussian's
+    culled slots (zero cotangents, moved past every segment) then sort
+    back into their rect position: the sorted columns are the uncut
+    stream's bit for bit, so on the card too, where the scans' sums
+    depend on the positions of the zeros, the gradients keep their
+    bits. Without the cull the two orders are one: inside a Gaussian's
+    run the stream orders its slots by tile, as it emitted them."""
     P = gid_row.shape[0]
     mode = mode or reduce_mode()
     gid = gid_row.to(torch.int32)
-    order = torch.sort(gid, stable=True).indices
+    if slot is None:
+        order = torch.sort(gid, stable=True).indices
+    else:
+        order = torch.sort(((gid.to(torch.int64) + 1) << 32)
+                           | slot.to(torch.int64)).indices
     b = d_inst[:10].index_select(1, order)             # [10, P] by gid
     counts = kept.to(torch.int64)
     ends = (P - counts.sum()) + torch.cumsum(counts, 0)  # invalid slots first
@@ -260,10 +352,12 @@ class _BuildInstances(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, tiles_min, tiles_max, visible, grid_x, grid_y,
                 capacity, max_tiles):
-        stream, kept = build_instances_fwd(
+        stream, kept, slot = build_instances_fwd(
             feat.detach(), tiles_min, tiles_max, visible, grid_x, grid_y,
             capacity, max_tiles, with_kept=True)
         ctx.save_for_backward(stream.inst, kept)
+        # the tie-break matters only where culled slots left their runs
+        ctx.slot = slot if ellipse_cull_on() else None
         ctx.mark_non_differentiable(stream.tile_start, stream.tile_end,
                                     stream.n_dropped, stream.n_total)
         return tuple(stream)
@@ -271,7 +365,8 @@ class _BuildInstances(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_inst, *_):
         inst, kept = ctx.saved_tensors
-        dfeat = build_instances_bwd(inst[C_GID_ROW], kept, d_inst)
+        dfeat = build_instances_bwd(inst[C_GID_ROW], kept, d_inst,
+                                    slot=ctx.slot)
         return dfeat, None, None, None, None, None, None, None
 
 

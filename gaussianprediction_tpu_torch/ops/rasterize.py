@@ -1,21 +1,25 @@
 """Public render API: one view of Gaussians -> image, depth, alpha, tidx.
 
 Torch twin of gaussianprediction_tpu/ops/rasterize.py:render: projection +
-covariance (ops/projection.py), SH color (utils/sh.py), the fused instance
-stream (ops/instance_stream.py) and the tile blend
-(ops/rasterize_kernels.py), then tile -> image assembly. The returned dict
-has the JAX package's keys.
+covariance (ops/projection.py), SH color (utils/sh.py), the instance
+stream and the tile blend (ops/rasterize_kernels.py), then tile -> image
+assembly. The returned dict has the JAX package's keys. The stream comes
+from the fused instance stream (ops/instance_stream.py, the default) or,
+with fast_binning=False, from the classic binning (ops/binning.py), whose
+CHUNK-aligned segments the blend reads as they are.
 
 When any input needs a gradient, the stream and the blend run through
 their autograd Functions, so gradients reach xyz, scaling, rotation,
-opacity, shs (or colors_precomp) and means2d_dummy; otherwise (eval, under
-torch.no_grad) the kernels are called directly.
+opacity, shs (or colors_precomp), cov3d_precomp and means2d_dummy;
+otherwise (eval, under torch.no_grad) the kernels are called directly.
 """
 from __future__ import annotations
 
 import torch
 
-from gaussianprediction_tpu_torch.ops import instance_stream, projection
+from gaussianprediction_tpu_torch.ops import (
+    binning, instance_stream, projection,
+)
 from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
 from gaussianprediction_tpu_torch.ops.projection import TILE
 from gaussianprediction_tpu_torch.utils import sh as shlib
@@ -31,12 +35,51 @@ def _assemble(per_tile, grid_x, grid_y, height, width):
     return img[:height, :width]
 
 
+def binned_instances(feat, gauss_id):
+    """The classic path's [16, P] instance SoA: feat rows gathered by
+    gauss_id (zero on the padding rows, gauss_id -1), then the gid row,
+    the valid row and four zero rows (the JAX render's layout)."""
+    valid = (gauss_id >= 0).to(torch.float32)
+    gid = torch.clamp(gauss_id, min=0).to(torch.int64)
+    rows = feat.T.index_select(1, gid) * valid
+    P = gauss_id.shape[0]
+    return torch.cat([rows, gauss_id.to(torch.float32)[None], valid[None],
+                      feat.new_zeros((rk.NCH - 12, P))], dim=0)
+
+
+class _BinnedInstances(torch.autograd.Function):
+    """binned_instances with its gradient w.r.t. feat. The JAX package
+    differentiates the gather feat[gid]; here the cotangent columns are
+    reduced per Gaussian by instance_stream.build_instances_bwd (a sort by
+    gid and cumsum differences, GPT_BWD_REDUCE's modes), so no atomics run
+    and a step repeats bit for bit. Padding slots (gid -1) sort into its
+    negative prefix; each Gaussian's kept count is its number of slots."""
+
+    @staticmethod
+    def forward(ctx, feat, gauss_id):
+        inst = binned_instances(feat.detach(), gauss_id)
+        kept = torch.zeros((feat.shape[0] + 1,), dtype=torch.int32,
+                           device=feat.device)
+        kept.scatter_add_(0, (gauss_id.to(torch.int64) + 1),
+                          torch.ones_like(gauss_id, dtype=torch.int32))
+        ctx.save_for_backward(inst, kept[1:])
+        return inst
+
+    @staticmethod
+    def backward(ctx, d_inst):
+        inst, kept = ctx.saved_tensors
+        dfeat = instance_stream.build_instances_bwd(
+            inst[instance_stream.C_GID_ROW], kept, d_inst)
+        return dfeat, None
+
+
 def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
            height: int, bg, sh_degree: int = 3, colors_precomp=None,
            alive=None, scaling_modifier: float = 1.0,
            capacity_multiplier=24, tile_band=None,
            fast_binning: bool = True, max_tiles: int = 1024,
-           need_tidx: bool = True, means2d_dummy=None):
+           need_tidx: bool = True, means2d_dummy=None, cov3d_precomp=None,
+           tight_rects: bool = True):
     """Render one view. scaling and opacity are activated, rotation
     unnormalized, shs [N, 3, K] (or colors_precomp [N, 3]).
 
@@ -45,15 +88,20 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
     as dummy * (W/2, H/2), so its gradient is the screen-space gradient in
     NDC units that the densification thresholds assume.
 
+    cov3d_precomp ([N, 6] packed upper triangle, optional) replaces the
+    covariance of scaling and rotation (the reference's
+    compute_cov3D_python path). tight_rects=True bins each Gaussian over
+    the exact support of its ellipse at alpha 1/255 (the opacity drives
+    integer rects only); False over the reference's 3-sigma circle rect.
+
     capacity_multiplier * N bounds the instance buffer; drops are reported
-    in "n_dropped" so callers can size it for exact renders. Tile rects are
-    always the exact-support ones (the JAX default, tight_rects=True); the
-    JAX render's cov3d_precomp and tight_rects=False await a caller."""
-    if tile_band is not None or not fast_binning:
+    in "n_dropped" so callers can size it for exact renders.
+    fast_binning=False bins through ops/binning.py (a depth sort, a
+    stable tile sort, CHUNK-aligned segments) in place of the fused
+    stream; the outputs are the same where neither drops."""
+    if tile_band is not None:
         raise NotImplementedError(
-            "tile_band and fast_binning=False are not ported yet "
-            "(ROADMAP.md, Queue 1)"
-        )
+            "tile_band is not ported yet (ROADMAP.md, Queue 1 item 8)")
     N = xyz.shape[0]
     dev = xyz.device
     grid_x = (width + TILE - 1) // TILE
@@ -78,11 +126,16 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
 
     rotation = rotation / torch.linalg.norm(rotation, dim=-1, keepdim=True)
     # exact-support tile rects: the opacity drives integer rects only
-    proj = projection.project_from_params(
-        xyz, scaling, rotation, cam, width, height,
-        scaling_modifier=scaling_modifier, alive=alive,
-        opacity=opacity.detach(),
-    )
+    op_rect = opacity.detach() if tight_rects else None
+    if cov3d_precomp is not None:
+        proj = projection.project_gaussians(
+            xyz, cov3d_precomp, cam["world_view"], cam["full_proj"],
+            cam["tanfovx"], cam["tanfovy"], width, height, alive=alive,
+            opacity=op_rect)
+    else:
+        proj = projection.project_from_params(
+            xyz, scaling, rotation, cam, width, height,
+            scaling_modifier=scaling_modifier, alive=alive, opacity=op_rect)
     mean2d = proj.mean2d
     if means2d_dummy is not None:
         mean2d = mean2d + means2d_dummy * torch.tensor(
@@ -103,19 +156,33 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
          colors, proj.depth[:, None]],
         dim=-1,
     ).to(torch.float32)  # [N, 10]
-    if feat.requires_grad:
+    if not fast_binning:
+        with torch.no_grad():
+            bins = binning.bin_gaussians(proj._replace(
+                mean2d=mean2d.detach()), width, height, capacity,
+                align=CHUNK)
+        inst = (_BinnedInstances.apply(feat, bins.gauss_id)
+                if feat.requires_grad
+                else binned_instances(feat, bins.gauss_id))
+        stream = instance_stream.InstanceStream(
+            inst, bins.tile_start, bins.tile_end, bins.n_dropped,
+            ((bins.tile_end - bins.tile_start).sum()
+             + bins.n_dropped).to(torch.int32))
+    elif feat.requires_grad:
         stream = instance_stream.build_instances(
             feat, proj.tiles_min, proj.tiles_max, proj.visible, grid_x,
             grid_y, capacity, max_tiles,
         )
-        out_f = rk.RasterizeBinned.apply(stream.inst, stream.tile_start,
-                                         stream.tile_end, grid_x, grid_y,
-                                         need_tidx)
     else:
         stream = instance_stream.build_instances_fwd(
             feat, proj.tiles_min, proj.tiles_max, proj.visible, grid_x,
             grid_y, capacity, max_tiles,
         )
+    if feat.requires_grad:
+        out_f = rk.RasterizeBinned.apply(stream.inst, stream.tile_start,
+                                         stream.tile_end, grid_x, grid_y,
+                                         need_tidx)
+    else:
         out_f = rk.rasterize_binned(stream.inst, stream.tile_start,
                                     stream.tile_end, grid_x, grid_y,
                                     need_tidx)

@@ -24,10 +24,14 @@ distill_weight_init, the twin of the JAX package's, pre-fits the blend-
 weight model to the stage-1 motion at the stage-2 start when
 cfg.train.distill_init_steps > 0 (off in every preset).
 
-Not ported yet, and raising NotImplementedError: gradient accumulation
-(cfg.train.batch > 1, ROADMAP.md Queue 1 item 4), several steps per call
-(steps_per_call > 1, item 1(b)), several devices (item 8) and the profiler
-hook (cfg.train.profile_steps > 0).
+cfg.train.batch > 1 accumulates the gradients of `batch` iterations into
+one optimizer step (train_batch, the JAX Trainer's; host events at the
+batch's last iteration only), wherever _chunk_end finds a whole batch
+free of host events; elsewhere single iterations run.
+
+Not ported yet, and raising NotImplementedError: several steps per call
+(steps_per_call > 1, ROADMAP.md Queue 1 item 1(b)), several devices (item
+8) and the profiler hook (cfg.train.profile_steps > 0, item 1).
 """
 from __future__ import annotations
 
@@ -247,6 +251,7 @@ class Trainer:
         self.width, self.height = cam0.width, cam0.height
         self.extent = float(scene.cameras_extent)
         self._steps: Dict = {}
+        self._batched_steps: Dict = {}   # (stage, batch) -> batched step
         self._views: Dict = {}     # camera -> (device dict, time, gt)
         self._history = []
         self._did_stage3 = False
@@ -342,6 +347,40 @@ class Trainer:
                       f"{cur:.2f} -> {mult:.2f}")
 
     # ---- the steps ---------------------------------------------------------
+    def _batched_step_fn(self, stage: int, batch: int):
+        key = (stage, batch)
+        if key not in self._batched_steps:
+            from gaussianprediction_tpu_torch.train.step import (
+                make_train_step_batched,
+            )
+
+            self._batched_steps[key] = make_train_step_batched(
+                self.cfg, stage, self.width, self.height, self.extent,
+                self.cfg.model.sh_degree, self.scene.total_frame, self._bg,
+                batch)
+        return self._batched_steps[key]
+
+    def _chunk_end(self, a: int, iterations: int, span: int) -> int:
+        """The largest b >= a, at most a + span - 1, such that iterations
+        [a, b] hold no host event: no SH bump or stage start in (a, b], no
+        densify, reset, keypoint-growth, save, checkpoint or report
+        iteration in [a, b) (the JAX Trainer's)."""
+        o, t = self.cfg.opt, self.cfg.train
+
+        def next_mult(x, m):
+            return (x // m + 1) * m
+
+        pre = [next_mult(a, 1000)] + [
+            e for e in (t.jointly_iteration, t.second_stage_iteration + 1,
+                        t.third_stage_iteration + 1) if e > a]
+        post = [next_mult(a - 1, o.densification_interval),
+                next_mult(a - 1, o.opacity_reset_interval),
+                next_mult(a - 1, t.adaptive_interval)]
+        post += [e for e in (list(t.save_iterations)
+                             + list(t.checkpoint_iterations)
+                             + list(t.test_iterations)) if e >= a]
+        return min(a + span - 1, iterations, min(pre) - 1, min(post))
+
     def _step_fn(self, stage: int):
         if stage not in self._steps:
             from gaussianprediction_tpu_torch.train.step import (
@@ -501,13 +540,34 @@ class Trainer:
         self._densification(iteration, stage)
         return metrics
 
+    def train_batch(self, a: int, b: int) -> Dict:
+        """Gradient accumulation over iterations [a, b] with ONE optimizer
+        step (the reference's --batch). The SH bump and the stage
+        transition happen at a, the other host events at b only (the
+        caller picks [a, b] by _chunk_end)."""
+        cfg = self.cfg
+        if a % 1000 == 0 and \
+                self.active_sh_degree < cfg.model.sh_degree:
+            self.active_sh_degree += 1
+        self._maybe_stage_transition(a)
+        stage = stage_of(cfg, a)
+        cams = [self.scene.next_train_camera() for _ in range(b - a + 1)]
+        views = [self._view(c) for c in cams]
+        draws = [self._step_noise(stage) for _ in cams]
+        self.state, self.opt_state, metrics = self._batched_step_fn(
+            stage, len(cams))(
+            self.state, self.opt_state, [v[0] for v in views],
+            [v[2] for v in views], [v[1] for v in views], a,
+            active_deg=self.active_sh_degree,
+            noises=[d[0] for d in draws], time_noises=[d[1] for d in draws])
+        metrics.pop("grads", None)
+        self._last_cam = cams[-1]
+        self._densification(b, stage)
+        return metrics
+
     def run(self, iterations: Optional[int] = None,
             model_path: Optional[str] = None):
         cfg = self.cfg
-        if cfg.train.batch > 1:
-            raise NotImplementedError(
-                "cfg.train.batch > 1 (gradient accumulation, train_batch) "
-                "is not ported yet (ROADMAP.md, Queue 1 item 4)")
         if cfg.train.profile_steps > 0:
             raise NotImplementedError(
                 "cfg.train.profile_steps > 0 (the profiler hook) is not "
@@ -523,9 +583,16 @@ class Trainer:
         t0 = time.time()
         t_last = t0
         iteration = self.iteration
+        batch = max(1, cfg.train.batch)
         while iteration < iterations:
-            iteration += 1
-            metrics = self.train_one(iteration)
+            a = iteration + 1
+            b = self._chunk_end(a, iterations, batch) if batch > 1 else a
+            if b - a + 1 == batch > 1:
+                metrics = self.train_batch(a, b)
+                iteration = b
+            else:
+                metrics = self.train_one(a)
+                iteration = a
             self.iteration = iteration
             if iteration - self._last_log >= self.log_every:
                 self._last_log = iteration

@@ -13,8 +13,8 @@ masked per-group Adam.
 
 Random draws come from a torch.Generator, or are passed pre-drawn (the
 parity tests hand both packages the same N(0,1) draws; the Trainer,
-train/loop.py, passes its own). The batched steps wait for a later slice
-(ROADMAP.md).
+train/loop.py, passes its own). make_train_step_batched accumulates the
+gradients of several renders into one optimizer step.
 """
 from __future__ import annotations
 
@@ -101,21 +101,12 @@ def render_at_time(params, cfg: Config, state: GaussianState, cam, t,
     return pkg, out
 
 
-def make_train_step(cfg: Config, stage: int, width: int, height: int,
-                    spatial_scale: float, sh_degree: int, total_frame: int,
-                    bg):
-    """The training step of one stage:
-
-    step(state, opt_state, cam, gt, t, iteration, generator=None,
-         active_deg=None, noise=None, time_noise=None)
-      -> (state, opt_state, metrics)
-
-    gt is the [H, W, 3] target, t a 0-d f32 tensor, iteration the global
-    iteration. noise and time_noise (0-d) are the N(0,1) draws of the xyz
-    and time jitter, drawn from `generator` when None; noise is [C, 3] (the
-    Gaussians) in stage 1 and [Ck, 3] (the keypoints) in stages 2/3.
-    metrics: loss, l1, psnr, n_dropped, and grads (the gradient of every
-    trainable param, the JAX package's tree layout)."""
+def _step_parts(cfg: Config, stage: int, width: int, height: int,
+                spatial_scale: float, sh_degree: int, bg):
+    """The two halves of a step, shared by make_train_step and
+    make_train_step_batched: loss_and_grads (one render, its loss and
+    gradients; the graph is freed on return) and finish (the
+    densification statistics and the masked Adam update)."""
     opt_stage = max(stage, 1)
     s2 = cfg.train.second_stage_iteration
     groups = opt_mod.active_groups(cfg, opt_stage)
@@ -155,6 +146,68 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
         }
         return loss.detach(), grads, next(it), aux
 
+    @torch.no_grad()
+    def finish(state, opt_state, grads, vs_grads, radii, vis,
+               iteration: int, t_resid, delta_xyz):
+        """Statistics from the carrier's gradient vs_grads, the radii and
+        the visibility, the teacher residual at time t_resid against
+        delta_xyz, then Adam at `iteration`."""
+        vs_norm = torch.linalg.norm(vs_grads, dim=-1)
+        do_stats = vis if iteration < cfg.opt.densify_until_iter \
+            else torch.zeros_like(vis)
+        if stage >= 2 and iteration < cfg.train.adaptive_end_iter + s2:
+            # the keypoint-growth window, while free keypoint rows last
+            do_stats = do_stats | (
+                vis & (state.n_kpts() < cfg.model.kpt_capacity()))
+        state = state.replace(
+            max_radii2D=torch.where(
+                do_stats, torch.maximum(state.max_radii2D, radii),
+                state.max_radii2D),
+            xyz_gradient_accum=state.xyz_gradient_accum + torch.where(
+                do_stats, vs_norm, torch.zeros_like(vs_norm)),
+            xyz_gradient_accum_max=torch.where(
+                do_stats & (vs_norm > state.xyz_gradient_accum_max),
+                vs_norm, state.xyz_gradient_accum_max),
+            denom=state.denom + do_stats.to(torch.float32),
+        )
+        if stage >= 2 and cfg.train.densify_from_teaching:
+            in_window = (cfg.train.adaptive_from_iter + s2 <= iteration
+                         < cfg.train.adaptive_end_iter + s2)
+            if in_window:
+                resid = D.teacher_motion_residual(
+                    state.params, cfg, D.time_encode(cfg, t_resid),
+                    delta_xyz)
+                state = state.replace(
+                    xyz_motion_accum_max=torch.where(
+                        resid > state.xyz_motion_accum_max, resid,
+                        state.xyz_motion_accum_max),
+                    motion_denom=state.motion_denom + 1.0)
+        new_params, opt_state = opt_mod.adam_step(
+            state.params, grads, opt_state, cfg, opt_stage, spatial_scale,
+            iteration)
+        return state.replace(params=new_params), opt_state
+
+    return loss_and_grads, finish
+
+
+def make_train_step(cfg: Config, stage: int, width: int, height: int,
+                    spatial_scale: float, sh_degree: int, total_frame: int,
+                    bg):
+    """The training step of one stage:
+
+    step(state, opt_state, cam, gt, t, iteration, generator=None,
+         active_deg=None, noise=None, time_noise=None)
+      -> (state, opt_state, metrics)
+
+    gt is the [H, W, 3] target, t a 0-d f32 tensor, iteration the global
+    iteration. noise and time_noise (0-d) are the N(0,1) draws of the xyz
+    and time jitter, drawn from `generator` when None; noise is [C, 3] (the
+    Gaussians) in stage 1 and [Ck, 3] (the keypoints) in stages 2/3.
+    metrics: loss, l1, psnr, n_dropped, and grads (the gradient of every
+    trainable param, the JAX package's tree layout)."""
+    loss_and_grads, finish = _step_parts(cfg, stage, width, height,
+                                         spatial_scale, sh_degree, bg)
+
     def step(state: GaussianState, opt_state, cam, gt, t, iteration: int,
              generator: Optional[torch.Generator] = None, active_deg=None,
              noise=None, time_noise=None):
@@ -162,45 +215,76 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
                             noise=time_noise)
         loss, grads, vs_grads, aux = loss_and_grads(
             state, cam, gt, t, iteration, generator, active_deg, noise)
-        with torch.no_grad():
-            # densification statistics
-            vis = aux["visibility"]
-            vs_norm = torch.linalg.norm(vs_grads, dim=-1)
-            do_stats = vis if iteration < cfg.opt.densify_until_iter \
-                else torch.zeros_like(vis)
-            if stage >= 2 and iteration < cfg.train.adaptive_end_iter + s2:
-                # the keypoint-growth window, while free keypoint rows last
-                do_stats = do_stats | (
-                    vis & (state.n_kpts() < cfg.model.kpt_capacity()))
-            state = state.replace(
-                max_radii2D=torch.where(
-                    do_stats, torch.maximum(state.max_radii2D, aux["radii"]),
-                    state.max_radii2D),
-                xyz_gradient_accum=state.xyz_gradient_accum + torch.where(
-                    do_stats, vs_norm, torch.zeros_like(vs_norm)),
-                xyz_gradient_accum_max=torch.where(
-                    do_stats & (vs_norm > state.xyz_gradient_accum_max),
-                    vs_norm, state.xyz_gradient_accum_max),
-                denom=state.denom + do_stats.to(torch.float32),
-            )
-            if stage >= 2 and cfg.train.densify_from_teaching:
-                in_window = (cfg.train.adaptive_from_iter + s2 <= iteration
-                             < cfg.train.adaptive_end_iter + s2)
-                if in_window:
-                    resid = D.teacher_motion_residual(
-                        state.params, cfg, D.time_encode(cfg, t),
-                        aux["delta_xyz"])
-                    state = state.replace(
-                        xyz_motion_accum_max=torch.where(
-                            resid > state.xyz_motion_accum_max, resid,
-                            state.xyz_motion_accum_max),
-                        motion_denom=state.motion_denom + 1.0)
-            new_params, opt_state = opt_mod.adam_step(
-                state.params, grads, opt_state, cfg, opt_stage,
-                spatial_scale, iteration)
-        state = state.replace(params=new_params)
+        state, opt_state = finish(
+            state, opt_state, grads, vs_grads, aux["radii"],
+            aux["visibility"], iteration, t, aux["delta_xyz"])
         metrics = {"loss": loss, "l1": aux["l1"], "psnr": aux["psnr"],
                    "n_dropped": aux["n_dropped"], "grads": grads}
+        return state, opt_state, metrics
+
+    return step
+
+
+def make_train_step_batched(cfg: Config, stage: int, width: int,
+                            height: int, spatial_scale: float,
+                            sh_degree: int, total_frame: int, bg,
+                            batch: int):
+    """Gradient accumulation over `batch` renders and ONE optimizer step,
+    the JAX make_train_step_batched (the reference's --batch):
+
+    step(state, opt_state, cams, gts, times, iteration0, generator=None,
+         active_deg=None, noises=None, time_noises=None)
+      -> (state, opt_state, metrics)
+
+    Member j renders cams[j] against gts[j] at times[j] (0-d tensors) and
+    iteration iteration0 + j, with noises[j] / time_noises[j] as the
+    single step's noise / time_noise (None, or a None entry: drawn from
+    `generator`). The members run one after another, one backward graph
+    alive at a time. Losses, gradients and the carrier's screen-space
+    gradients are summed in member order, radii combined by max and
+    visibility by any; the statistics and Adam then run once, at
+    iteration iteration0 + batch - 1, the teacher residual (stages 2/3)
+    from the last member's delta_xyz at its time before the noise.
+    metrics: loss (the sum), l1 and psnr (the members' means), n_dropped
+    (the largest), grads (the summed gradients)."""
+    loss_and_grads, finish = _step_parts(cfg, stage, width, height,
+                                         spatial_scale, sh_degree, bg)
+
+    def step(state: GaussianState, opt_state, cams, gts, times,
+             iteration0: int, generator: Optional[torch.Generator] = None,
+             active_deg=None, noises=None, time_noises=None):
+        if not (len(cams) == len(gts) == len(times) == batch):
+            raise ValueError(f"a batch of {batch} cameras, targets and "
+                             "times")
+        noises = noises or [None] * batch
+        time_noises = time_noises or [None] * batch
+        grads = vs_grads = radii = vis = loss = None
+        l1s, psnrs, drops = [], [], []
+        for j in range(batch):
+            it = iteration0 + j
+            t = time_with_noise(cfg, times[j], it, generator, stage,
+                                total_frame, noise=time_noises[j])
+            lj, gj, vj, aux = loss_and_grads(state, cams[j], gts[j], t, it,
+                                             generator, active_deg,
+                                             noises[j])
+            if grads is None:
+                grads, vs_grads, loss = gj, vj, lj
+                radii, vis = aux["radii"], aux["visibility"]
+            else:
+                grads = opt_mod.tree_map(torch.add, grads, gj)
+                vs_grads = vs_grads + vj
+                loss = loss + lj
+                radii = torch.maximum(radii, aux["radii"])
+                vis = vis | aux["visibility"]
+            l1s.append(aux["l1"])
+            psnrs.append(aux["psnr"])
+            drops.append(aux["n_dropped"])
+        state, opt_state = finish(
+            state, opt_state, grads, vs_grads, radii, vis,
+            iteration0 + batch - 1, times[-1], aux["delta_xyz"])
+        metrics = {"loss": loss, "l1": torch.stack(l1s).mean(),
+                   "psnr": torch.stack(psnrs).mean(),
+                   "n_dropped": torch.stack(drops).max(), "grads": grads}
         return state, opt_state, metrics
 
     return step

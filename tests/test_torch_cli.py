@@ -5,8 +5,9 @@ resolve_config of the port and of train.py give the same config JSON for
 the same argv, the parsers have the same flags and defaults, and a port
 cfg.json loads in the JAX package's Config. The flags whose path the port
 lacks raise NotImplementedError naming their ROADMAP.md item, before any
-file is written; --weight_encoder brick|fourier and --distill_init_steps
-train across both stage transitions. The CLIs refuse to run without a card
+file is written; --weight_encoder brick|fourier, --distill_init_steps,
+--batch 2 and --step_opacity --use_time_decay train across both stage
+transitions. The CLIs refuse to run without a card
 unless GPT_FORCE_CPU=1. End to end, under GPT_FORCE_CPU=1, on a 32x32 D-NeRF
 tree on disk (the `test` preset, 100 iterations, max_time 0.75): train,
 eval (--render_video --render_train), train_gcn (--metrics
@@ -80,7 +81,7 @@ def test_parser_flags_and_defaults_equal():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--batch", "2"], 4), (["--n_devices", "2"], 8),
+    (["--n_devices", "2"], 8),
     (["--steps_per_call", "4"], 1), (["--profile_steps", "5"], 1),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
@@ -155,20 +156,41 @@ SHORT_STAGES = ["--preset", "test", "--iterations", "16", "--max_time",
 
 @pytest.mark.parametrize("flags", [
     ["--weight_encoder", "brick"], ["--weight_encoder", "fourier"],
-    ["--distill_init_steps", "10"],
+    ["--distill_init_steps", "10"], ["--batch", "2"],
+    ["--step_opacity", "--use_time_decay"],
 ])
-def test_encoder_and_distill_flags_train(trained, tmp_path, on_cpu, flags):
+def test_encoder_and_distill_flags_train(trained, tmp_path, on_cpu, flags,
+                                         monkeypatch):
     """The flags the port once refused train across both transitions:
     the keypoints set, the weight model trained (brick tables, or none for
     fourier), finite losses and a test report; distillation prints its
-    first and last loss."""
+    first and last loss; --batch 2 accumulates pairs of iterations
+    (Trainer.train_batch) wherever no host event falls inside one; the
+    HyperNeRF presets' --step_opacity --use_time_decay train too."""
+    from gaussianprediction_tpu_torch.train import loop as L
     from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
 
+    batches = []
+    orig = L.Trainer.train_batch
+
+    def spy(self, a, b):
+        batches.append((a, b))
+        return orig(self, a, b)
+
+    monkeypatch.setattr(L.Trainer, "train_batch", spy)
     scene = trained[0]
     model = tmp_path / "m"
     tr, out = quiet_call(TT.main, ["-s", scene, "-m", str(model),
                                    *SHORT_STAGES, *flags])
     assert "Training complete" in out and tr.iteration == 16
+    if flags[0] == "--batch":
+        # events at 4 (stage 1), 11 (stage 2), 14 (stage 3) and the
+        # report at 16 cut the pairs
+        assert batches == [(1, 2), (4, 5), (6, 7), (8, 9), (11, 12),
+                           (14, 15)]
+    else:
+        assert not batches
+    assert tr.cfg.model.step_opacity == ("--step_opacity" in flags)
     assert "stage 2: keypoints initialized (16)" in out
     assert ("distill init: blend-teacher mse" in out) == \
         (flags[0] == "--distill_init_steps")

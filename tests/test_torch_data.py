@@ -410,3 +410,36 @@ def test_write_nerf_synthetic_reads_back(tmp_path):
         images=False)
     with open(tmp_path / "s" / "transforms_train.json") as f:
         assert len(json.load(f)["frames"]) == 4
+
+
+def test_write_hypernerf_reads_back(tmp_path, jax_pil):
+    """write_hypernerf's tree loads in both packages alike: the
+    every-4th-frame split, each frame's time its index / (n - 1), the
+    images the written bytes / 255, the poses and fields of view those
+    written (within the Nerfies camera's f32 rounding)."""
+    from gaussianprediction_tpu_torch.data.synthetic import orbit_camera
+
+    rng = np.random.default_rng(3)
+    cams = []
+    for i in range(10):
+        c = orbit_camera(0.3 * i, width=24, height=14, time=i / 9.0, uid=i)
+        img = rng.uniform(0, 1, (14, 24, 3)).astype(np.float32)
+        cams.append(dataclasses.replace(c, image=img))
+    pts = rng.normal(size=(9, 3)).astype(np.float32)
+    path = str(tmp_path / "h")
+    thyper.write_hypernerf(path, cams, pts, rng.uniform(0, 1, (9, 3)))
+    ours = thyper.read_hyper_scene(path, ratio=0.5)
+    assert [c.image_name for c in ours.train_cameras] == \
+        ["000000", "000004", "000008"]
+    assert [c.image_name for c in ours.test_cameras] == ["000002", "000006"]
+    for cam in ours.train_cameras + ours.test_cameras:
+        src = cams[int(cam.image_name)]
+        assert cam.time == src.time and (cam.width, cam.height) == (24, 14)
+        u8 = (src.image * 255).astype(np.uint8).astype(np.float32)
+        np.testing.assert_array_equal(cam.load_image(), u8 / 255.0)
+        np.testing.assert_allclose(cam.R, src.R, atol=1e-6)
+        np.testing.assert_allclose(cam.T, src.T, atol=1e-5)
+        assert cam.fovx == pytest.approx(src.fovx, rel=1e-6)
+        assert cam.fovy == pytest.approx(src.fovy, rel=1e-6)
+    np.testing.assert_array_equal(ours.points, pts)
+    assert_infos_equal(ours, jhyper.read_hyper_scene(path, ratio=0.5))

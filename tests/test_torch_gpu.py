@@ -39,7 +39,14 @@ gradient to 1e-3 of its leaf's largest magnitude, the biases of the graph
 convolutions that feed a batch norm left out: their exact gradient is 0),
 render_kpts on a stage-2 `test`-preset model to the CPU's frames within
 2e-5 (render_set's tolerance), and LPIPS on the card to the committed
-goldens of tests/test_eval.py::TestLPIPSGolden at rtol 2e-3. Whether a
+goldens of tests/test_eval.py::TestLPIPSGolden at rtol 2e-3. The classic
+render path (render(fast_binning=False)) on the card equals the fast
+path's render bit for bit and a step through it repeats bit for bit; the
+forward and backward kernels equal their plain versions, and every
+variant the classic kernels, on its CHUNK-aligned stream; a render and a
+step under GPT_ELLIPSE_CULL=1 keep their bits; a batched step repeats bit
+for bit and sums its members' gradients; evaluate_dirs runs on the card's
+machine without imageio. Whether a
 card is present is decided inside the `cuda_device` fixture; without one
 every test here skips.
 
@@ -832,3 +839,214 @@ def test_native_png_decoder_equals_pil(cuda_device, tmp_path, mode):
     for channels, conv in ((3, "RGB"), (4, "RGBA")):
         want = np.asarray(Image.open(p).convert(conv), np.float32) / 255.0
         np.testing.assert_array_equal(native.decode_png(p, channels), want)
+
+
+# ------------------------------------------ the classic path, cull, batch
+
+
+def _binning_model(dev, num=2000, W=128):
+    """A stage-1 `dnerf` model of `num` Gaussians (SH 3, the d=4 w=256
+    deform MLP) on `dev`, its config with room for the binning path's
+    CHUNK-aligned segments, a camera, a target and a time."""
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.convert import state_from_params
+    from gaussianprediction_tpu_torch.models.gaussians import (
+        deform_mlp_sizes,
+    )
+    from gaussianprediction_tpu_torch.ops.mlp import init_mlp
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.utils.sh import rgb_to_sh
+
+    cfg = get_preset("dnerf")
+    cfg.model.capacity_multiplier = 24
+    g = random_gaussians(num, seed=11, scale_range=(-5.0, -3.0))
+    rng = np.random.default_rng(12)
+    params = {
+        "xyz": g["xyz"], "features_dc": rgb_to_sh(g["colors"])[:, None, :],
+        "features_rest": (0.1 * rng.normal(size=(num, 15, 3))).astype(
+            np.float32),
+        "scaling": g["log_scales"], "rotation": g["rotation"],
+        "opacity": g["opacity_logit"],
+        "motion_feature": (1e-3 * rng.normal(size=(num, 32))).astype(
+            np.float32),
+        "df_mlp": init_mlp(rng, deform_mlp_sizes(cfg)),
+    }
+    state = state_from_params(params, np.ones(num, bool), device=dev)
+    cam = orbit_camera(0.9, width=W, height=W).to_device_dict(dev)
+    gt = torch.from_numpy(rng.uniform(0, 1, (W, W, 3)).astype(
+        np.float32)).to(dev)
+    return cfg, state, O.init_adam(state.params), cam, gt, \
+        torch.tensor(0.3, device=dev)
+
+
+def _classic_binning(monkeypatch):
+    """Route the port's render through the binning path
+    (fast_binning=False) for the test: the steps call rasterize.render."""
+    import functools
+
+    from gaussianprediction_tpu_torch.ops import rasterize as TRZ
+
+    monkeypatch.setattr(TRZ, "render", functools.partial(
+        TRZ.render, fast_binning=False))
+
+
+def _step_twice(dev, cfg, state, opt, cam, gt, t, batch=1):
+    """One stage-1 step (batch 1) or batched step run twice from one
+    state, each from a generator seeded 5."""
+    from gaussianprediction_tpu_torch.train.step import (
+        make_train_step, make_train_step_batched,
+    )
+
+    W = gt.shape[1]
+    bg = torch.zeros(3, device=dev)
+    if batch == 1:
+        step = make_train_step(cfg, 1, W, W, 1.0, 3, 50, bg)
+        return [step(state, opt, cam, gt, t, 2000,
+                     torch.Generator(dev).manual_seed(5))
+                for _ in range(2)]
+    step = make_train_step_batched(cfg, 1, W, W, 1.0, 3, 50, bg, batch)
+    return [step(state, opt, [cam] * batch, [gt] * batch, [t] * batch, 2000,
+                 torch.Generator(dev).manual_seed(5)) for _ in range(2)]
+
+
+def test_binning_render_and_step_on_card(cuda_device, monkeypatch):
+    """render(fast_binning=False) on the card: the fast path's render bit
+    for bit, the forward kernel launched on the CHUNK-aligned stream; a
+    stage-1 step through the binning path run twice from one state bit-
+    identical, launching the backward kernel. (Its gradients are not the
+    fast path's bit for bit here: the per-Gaussian reduction scans the
+    same columns behind a zero prefix of another length, and the card's
+    row-wise scan associates by position.)"""
+    from gaussianprediction_tpu_torch.models.deform import deform_stage1
+    from gaussianprediction_tpu_torch.models.gaussians import get_shs
+    from gaussianprediction_tpu_torch.ops.rasterize import render
+
+    cfg, state, opt, cam, gt, t = _binning_model(cuda_device)
+    with torch.no_grad():
+        d = deform_stage1(state.params, cfg, state, t, 20_000)
+        args = (d.xyz, d.scaling, d.rotation, d.opacity,
+                get_shs(state.params), cam, 128, 128,
+                torch.zeros(3, device=cuda_device))
+        fast = render(*args, capacity_multiplier=24)
+        before = launch_counts["blend_fwd"]
+        slow = render(*args, capacity_multiplier=24, fast_binning=False)
+        torch.cuda.synchronize()
+    assert launch_counts["blend_fwd"] == before + 1
+    assert int(slow["n_dropped"]) == 0
+    for k in ("render", "depth", "alpha"):
+        assert torch.equal(_bits(fast[k]), _bits(slow[k])), k
+    _classic_binning(monkeypatch)
+    before = launch_counts["blend_bwd"]
+    outs = _step_twice(cuda_device, cfg, state, opt, cam, gt, t)
+    torch.cuda.synchronize()
+    assert launch_counts["blend_bwd"] == before + 2
+    _assert_identical(outs)
+
+
+def test_blend_kernels_equal_plain_on_binning_stream(cuda_device):
+    """The forward and backward kernels on a binning stream (segments
+    CHUNK-aligned, not contiguous): equal bit for bit to their plain
+    versions on the card (the backward's in the kernels' order), and every
+    variant's kernels to the classic ones."""
+    from gaussianprediction_tpu_torch.ops import binning as TB
+    from gaussianprediction_tpu_torch.ops import projection as PJ
+    from gaussianprediction_tpu_torch.ops.rasterize import binned_instances
+
+    W, g = 256, 16
+    xyz, scal, rot, op, col = _gaussians(20_000, 1, cuda_device)
+    cam = orbit_camera(0.5, width=W, height=W).to_device_dict(cuda_device)
+    proj = PJ.project_from_params(xyz, scal, rot, cam, W, W, opacity=op)
+    feat = torch.cat([proj.mean2d, proj.conic, op[:, None], col,
+                      proj.depth[:, None]], dim=-1)
+    bins = TB.bin_gaussians(proj, W, W, 16 * 20_000, align=128)
+    assert int(bins.n_dropped) == 0
+    assert bool((bins.tile_end[:-1] < bins.tile_start[1:]).any())
+    args = (binned_instances(feat, bins.gauss_id), bins.tile_start,
+            bins.tile_end, g, g)
+    out = TR.rasterize_binned(*args)
+    assert torch.equal(_bits(out), _bits(TR.rasterize_binned_plain(*args)))
+    dpix = TR.pixel_grads(out, torch.randn_like(out))
+    d = TR.rasterize_binned_bwd(*args, dpix)
+    assert torch.equal(_bits(d), _bits(TR.rasterize_binned_bwd(*args, dpix)))
+    assert torch.equal(_bits(d), _bits(TR.rasterize_binned_bwd_plain(
+        *args, dpix, sums="kernel")))
+    for v in (TR.BlendVariant("flat"), TR.BlendVariant("mt", 4),
+              TR.BlendVariant("smt", 4)):
+        assert torch.equal(_bits(TR.rasterize_binned(*args, variant=v)),
+                           _bits(out)), v
+        assert torch.equal(_bits(TR.rasterize_binned_bwd(
+            *args, dpix, variant=v)), _bits(d)), v
+
+
+def test_ellipse_cull_on_card_keeps_the_bits(cuda_device, monkeypatch):
+    """GPT_ELLIPSE_CULL=1 on the card: a render and a stage-1 step equal
+    bit for bit to the same with the cull off, with fewer instances in the
+    segments."""
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+
+    cfg, state, opt, cam, gt, t = _binning_model(cuda_device)
+    seen = []
+    orig = IS.build_instances_fwd
+    monkeypatch.setattr(IS, "build_instances_fwd", lambda *a, **k: (
+        seen.append(orig(*a, **k)) or seen[-1]))
+    outs = []
+    for cull in ("0", "1"):
+        monkeypatch.setenv("GPT_ELLIPSE_CULL", cull)
+        outs.append(_step_twice(cuda_device, cfg, state, opt, cam, gt, t)[0])
+    n_seg = [int((s[0].tile_end - s[0].tile_start).sum())
+             for s in (seen[0], seen[-1])]
+    assert 0 < n_seg[1] < n_seg[0]
+    _assert_identical(outs)
+
+
+def test_batched_step_on_card(cuda_device):
+    """make_train_step_batched with 3 members on the card: run twice from
+    one state bit-identical, and its gradients the members' single-render
+    gradients summed in member order, bit for bit (the same draws from
+    the same generator)."""
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train import step as S
+
+    cfg, state, opt, cam, gt, t = _binning_model(cuda_device)
+    before = launch_counts["blend_bwd"]
+    outs = _step_twice(cuda_device, cfg, state, opt, cam, gt, t, batch=3)
+    torch.cuda.synchronize()
+    assert launch_counts["blend_bwd"] == before + 6
+    _assert_identical(outs)
+    loss_and_grads, _ = S._step_parts(cfg, 1, 128, 128, 1.0, 3,
+                                      torch.zeros(3, device=cuda_device))
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    total = None
+    for j in range(3):
+        tj = S.time_with_noise(cfg, t, 2000 + j, gen, 1, 50)
+        g = loss_and_grads(state, cam, gt, tj, 2000 + j, gen, None, None)[1]
+        total = g if total is None else O.tree_map(torch.add, total, g)
+    for a, b in zip(O.tree_leaves(outs[0][2]["grads"]),
+                    O.tree_leaves(total)):
+        assert torch.equal(a, b)
+
+
+def test_evaluate_dirs_on_card(cuda_device, tmp_path):
+    """eval/metrics.py:evaluate_dirs on the card's machine, which has no
+    imageio: two directories of PNGs, results.json and the error maps."""
+    import json
+    import os
+
+    from gaussianprediction_tpu_torch.data.image_io import write_png
+    from gaussianprediction_tpu_torch.eval.metrics import evaluate_dirs
+
+    rd, gd = tmp_path / "renders", tmp_path / "gt"
+    rd.mkdir()
+    gd.mkdir()
+    rng = np.random.default_rng(4)
+    for i in range(2):
+        a = rng.integers(0, 256, (48, 40, 3), np.uint8)
+        b = np.clip(a.astype(int) + rng.integers(-20, 20, a.shape), 0,
+                    255).astype(np.uint8)
+        write_png(str(rd / f"{i:05d}.png"), a)
+        write_png(str(gd / f"{i:05d}.png"), b)
+    res = evaluate_dirs(str(rd), str(gd), device=cuda_device)
+    assert np.isfinite(res["mean"]["PSNR"]) and res["mean"]["PSNR"] > 10
+    with open(tmp_path / "results.json") as f:
+        assert json.load(f)["PSNR"] == res["mean"]["PSNR"]
+    assert len(os.listdir(tmp_path / "deltas")) == 2

@@ -120,6 +120,26 @@ def test_evaluate_dirs_and_results_table(tmp_path, monkeypatch):
     assert TM.results_table(dirs) == JM.results_table(dirs)
 
 
+def test_error_maps_without_imageio(tmp_path, monkeypatch):
+    """Where imageio is absent (the card's machine), write_error_maps writes
+    the .png maps through data/image_io.write_png; they decode to the
+    |render - gt| x 255 bytes the imageio path writes."""
+    import sys
+
+    from gaussianprediction_tpu_torch.data.image_io import load_image
+
+    a, b = _pair(40, 36, 12)
+    want = (np.clip(np.abs(a - b), 0.0, 1.0) * 255).astype(np.uint8)
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    TM.write_error_maps([a, a], [b, a], str(tmp_path / "deltas"))
+    assert sorted(os.listdir(tmp_path / "deltas")) == ["00000.png",
+                                                       "00001.png"]
+    got = load_image(str(tmp_path / "deltas" / "00000.png"))
+    np.testing.assert_array_equal(np.round(got * 255).astype(np.uint8),
+                                  want)
+
+
 @pytest.fixture(scope="module")
 def lpips_weights(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("lpips") / "lpips_det.npz")

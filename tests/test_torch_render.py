@@ -224,9 +224,20 @@ def test_convert_loads_jax_checkpoint(model, tmp_path):
 
 
 def test_unported_paths_raise():
+    """tile_band raises; fast_binning=False, once refused, renders."""
     g = {k: torch.zeros(4, d) for k, d in (("xyz", 3), ("s", 3), ("q", 4))}
+    g["s"] += 0.05
+    g["q"][:, 0] = 1.0
+    g["xyz"][:, 2] = torch.linspace(-0.2, 0.2, 4)
     cam = torbit(0.1, width=32, height=32).to_device_dict("cpu")
-    for kw in ({"tile_band": (0, 1)}, {"fast_binning": False}):
-        with pytest.raises(NotImplementedError):
-            TR.render(g["xyz"], g["s"], g["q"], torch.ones(4), None, cam, 32,
-                      32, torch.zeros(3), colors_precomp=g["xyz"], **kw)
+    args = (g["xyz"], g["s"], g["q"], torch.full((4,), 0.8), None, cam, 32,
+            32, torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TR.render(*args, colors_precomp=g["xyz"] + 0.5, tile_band=(0, 1))
+    # the CHUNK-aligned segments need room: 128 slots a touched tile
+    outs = [TR.render(*args, colors_precomp=g["xyz"] + 0.5,
+                      fast_binning=fb, capacity_multiplier=512)
+            for fb in (True, False)]
+    assert int(outs[1]["n_dropped"]) == 0
+    assert float(outs[1]["alpha"].max()) > 0.5
+    assert torch.equal(outs[0]["render"], outs[1]["render"])
