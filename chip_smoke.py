@@ -202,7 +202,22 @@ the run with a non-zero exit and no result line):
      every stream, the test PSNR rising, a stage-3 step (the batched one
      for chickchicken) run twice bit-identical, ms per iteration per
      stage; the launches added to the kernels line's rows;
- 22. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 22. the multi-GPU path on one card ("sharded", sharded_phases): phase
+     6's model and first view rendered as 4 bands of 13 tile rows and 50
+     of one row, stitched to the whole render bit for bit where no capped
+     rect reaches (n_dropped 0, each band's slots equal to
+     probe_slot_need(tile_band=...), #1 equal to its plain version on a
+     band's stream); an L1 loss backpropagated band by band against the
+     whole frame's (#6 equal to its plain version on a band); the sharded
+     step at world size 1 (nccl, mesh 1 x 1) at stages 1 and 2 equal to
+     make_train_step bit for bit, twice bit-identical, ms beside it; where
+     gloo takes CUDA tensors, 4 ranks of this script on the card: one
+     sharded step (1 x 4, 2 x 2) against the single and batched steps, and
+     Trainer(n_devices=4, n_data=1 and 2) over 4 warm-up and 4 stage-1
+     iterations of phase 18's scene against the single-device Trainer, the
+     ranks' states bit-identical (sharded_phases gives the bounds); the
+     launches added to the kernels line's rows;
+ 23. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
@@ -3339,12 +3354,745 @@ def hypernerf_phases(dev, seed: int, rehearse: bool):
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def sharded_cfg(scene: str, rehearse: bool, stage: int):
+    """The multi-rank Trainer runs' config: the dnerf preset on phase 18's
+    scene as a D-NeRF tree (4,096 rows in a rehearsal, as phase 18's),
+    warm-up iterations (stage 0) or stage 1 from iteration 1, the xyz and
+    time noise annealed off (as the JAX package's own sharded Trainer test
+    has them: the sharded step and the reference draw alike, but the
+    batched reference's members sit at other iterations), no reports."""
+    from gaussianprediction_tpu_torch.config import get_preset
+
+    cfg = get_preset("dnerf")
+    if rehearse:
+        cfg.model.max_gaussian_size = cfg.model.capacity = 4_096
+    cfg.source_path, cfg.model_path = scene, ""
+    if stage == 1:
+        cfg.train.jointly_iteration = 1
+    cfg.train.xyz_noise_iteration = cfg.train.time_noise_iteration = 1
+    cfg.train.test_iterations = ()
+    return cfg
+
+
+def state_digest(state, opt_state) -> str:
+    """One SHA-1 over the bytes of every tensor of a Trainer's state."""
+    import hashlib
+
+    from gaussianprediction_tpu_torch.models.gaussians import STATS
+    from gaussianprediction_tpu_torch.train.optimizer import tree_leaves
+
+    h = hashlib.sha1()
+    for x in tree_leaves([state.params, opt_state["m"], opt_state["v"],
+                          state.alive, state.kpt_alive]
+                         + [getattr(state, k) for k in STATS]):
+        if x is not None:
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def accumulated_iteration(tr, it: int, n_data: int):
+    """The single-device counterpart of a sharded Trainer iteration: the
+    same n_data cameras and draws, their gradients accumulated by
+    make_train_step_batched with Adam at `it` (its members at it - n_data
+    + 1 .. it: with the noise annealed off, a member's loss does not
+    depend on its iteration). Returns the summed loss."""
+    stage = tr._start(it)
+    cams = [tr.scene.next_train_camera() for _ in range(n_data)]
+    views = [tr._view(c) for c in cams]
+    noise, time_noises = tr._sharded_noise(stage)
+    zero = None if noise is None else torch.zeros_like(noise)
+    tr.state, tr.opt_state, m = tr._batched_step_fn(stage, n_data)(
+        tr.state, tr.opt_state, [v[0] for v in views], [v[2] for v in views],
+        [v[1] for v in views], it - n_data + 1,
+        active_deg=tr.active_sh_degree, noises=[zero] * n_data,
+        time_noises=time_noises)
+    tr._densification(it, stage)
+    return float(m["loss"])
+
+
+def child_main(spec_path: str) -> int:
+    """A rank of phase 22's multi-rank runs (python3 chip_smoke.py --child
+    spec.json, with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT set): a gloo group on the card (or the CPU), the single
+    sharded steps of child_steps, then a Trainer(n_devices=WORLD_SIZE,
+    n_data=...) for each (stage, n_data) of the spec's runs, `iterations`
+    sharded iterations each; writes rank<r>.json."""
+    import torch.distributed as dist
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.data.scene import (
+        Scene, load_scene_info,
+    )
+    from gaussianprediction_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from gaussianprediction_tpu_torch.train.loop import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    if dev.type == "cpu":       # four ranks share the rehearsal's cores
+        torch.set_num_threads(1)
+    maybe_initialize_distributed(verbose=False, device=dev, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "runs": [], "steps": []}
+    if spec.get("step"):
+        out["steps"] = child_steps(spec["step"], dev, rank, world,
+                                   os.path.dirname(spec_path))
+    info = None
+    for stage, n_data in spec["runs"]:
+        cfg = sharded_cfg(spec["scene"], spec["device"] == "cpu", stage)
+        info = info or load_scene_info(cfg)
+        tr = Trainer(cfg, Scene(info, seed=spec["seed"]), seed=spec["seed"],
+                     device=dev, quiet=True, n_devices=world, n_data=n_data)
+        kernels.reset_launch_counts()
+        losses, ms, drops = [], [], []
+        for it in range(1, spec["iterations"] + 1):
+            t0 = time.perf_counter()
+            m = tr.train_one_sharded(it)
+            losses.append(float(m["loss"]))
+            drops.append(int(m["n_dropped"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["runs"].append({
+            "stage": stage, "n_data": n_data, "losses": losses, "ms": ms,
+            "drops": drops,
+            "launches": dict(kernels.launch_counts),
+            "digest": state_digest(tr.state, tr.opt_state),
+            "mesh": [tr.mesh.data_index, tr.mesh.tile_index]})
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def child_steps(step: dict, dev, rank: int, world: int, folder: str):
+    """The ranks' single sharded steps: from the saved state, on a 1 x 4
+    and a 2 x 2 mesh, the cameras and draws of the spec. Rank 0 writes
+    its state after each (step<i>.npz); every rank returns its digests."""
+    import copy
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.convert import (
+        flatten, opt_state_from_arrays, state_from_params, unflatten,
+    )
+    from gaussianprediction_tpu_torch.data.synthetic import orbit_camera
+    from gaussianprediction_tpu_torch.parallel.mesh import make_mesh
+    from gaussianprediction_tpu_torch.parallel.shard import (
+        make_sharded_train_step,
+    )
+
+    with np.load(step["inputs"]) as f:
+        arr = {k: f[k] for k in f.files}
+
+    def under(prefix):
+        return {k[len(prefix):]: v for k, v in arr.items()
+                if k.startswith(prefix)}
+
+    cfg = get_preset("dnerf")
+    cfg.model.capacity_multiplier = step["capacity_multiplier"]
+    size = arr["gts"].shape[1]
+    cams = [orbit_camera(a, width=size, height=size, time=tm)
+            .to_device_dict(dev) for a, tm in zip(step["angles"],
+                                                  step["times"])]
+    gts = [torch.as_tensor(g, device=dev) for g in arr["gts"]]
+    times = [torch.tensor(tm, dtype=torch.float32, device=dev)
+             for tm in step["times"]]
+    bg = torch.zeros(3, device=dev)
+    noise = torch.as_tensor(arr["noise"], device=dev)
+    res = []
+    for i, (n_data, n_tile) in enumerate(step["meshes"]):
+        state = state_from_params(
+            unflatten(under("params/")), arr["alive"], device=dev,
+            stats={k[6:]: v for k, v in arr.items()
+                   if k.startswith("stats/")})
+        opt = opt_state_from_arrays(unflatten(under("opt/")), device=dev)
+        mesh = make_mesh(n_data, n_tile)
+        fn, _ = make_sharded_train_step(
+            copy.deepcopy(cfg), 1, size, size, step["extent"],
+            cfg.model.sh_degree, 50, bg, mesh,
+            capacity_multiplier=step["capacity_multiplier"])
+        kernels.reset_launch_counts()
+        st, op, m = fn(state, opt, cams[:n_data], gts[:n_data],
+                       times[:n_data], step["iteration"], noise=noise)
+        sync(dev)
+        res.append({"loss": float(m["loss"]),
+                    "n_dropped": int(m["n_dropped"]),
+                    "digest": state_digest(st, op),
+                    "launches": dict(kernels.launch_counts)})
+        if rank == 0:
+            np.savez(os.path.join(folder, f"step{i}.npz"),
+                     xyz_gradient_accum=st.xyz_gradient_accum.cpu().numpy(),
+                     denom=st.denom.cpu().numpy(),
+                     xyz=st.params["xyz"].cpu().numpy(),
+                     **{f"grads/{k}": v
+                        for k, v in flatten(m["grads"]).items()})
+    return res
+
+
+def spawn_ranks(spec: dict, folder: str, world: int, timeout: float):
+    """Run `world` child ranks of this script on the spec; returns their
+    rank<r>.json. A rank that fails, or one that outlives `timeout` (all
+    are killed then), fails the phase."""
+    path = os.path.join(folder, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        env.pop("GPT_DIST", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env))
+    outs, t_end = [], time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, t_end - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        said = [p.communicate()[0] or "" for p in procs[len(outs):]]
+        raise AssertionError(
+            f"a rank outlived the {timeout} s limit:\n" + "\n".join(
+                o[-1500:] for o in outs + said))
+    failed = [f"rank {rank} (exit {p.returncode}):\n{o[-2000:]}"
+              for rank, (p, o) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError("\n".join(failed))
+    res = []
+    for rank in range(world):
+        with open(os.path.join(folder, f"rank{rank}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def multi_rank_phase(dev, info, ctx, views, seed: int, rehearse: bool):
+    """Phase 22's several ranks on one card (sharded_phases says what they
+    check). Returns the ranks' launches, summed."""
+    import shutil
+    import tempfile
+
+    from gaussianprediction_tpu_torch.convert import flatten
+    from gaussianprediction_tpu_torch.data.blender import (
+        write_nerf_synthetic,
+    )
+    from gaussianprediction_tpu_torch.data.scene import (
+        Scene, load_scene_info,
+    )
+    from gaussianprediction_tpu_torch.kernels import build
+    from gaussianprediction_tpu_torch.models.gaussians import STATS
+    from gaussianprediction_tpu_torch.parallel import distributed as PD
+    from gaussianprediction_tpu_torch.train.loop import Trainer
+    from gaussianprediction_tpu_torch.train.step import (
+        make_train_step, make_train_step_batched,
+    )
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with Phase("sharded: 4 ranks on one card (gloo)"):
+        if dev.type == "cuda":
+            ok, said = PD.probe_gloo_cuda()
+            log(f"gloo takes CUDA tensors (all_gather, sum and max "
+                f"all_reduce, 2 ranks on cuda:0): {ok}")
+            if not ok:
+                log("gloo refuses CUDA tensors; several ranks on one card "
+                    "are not run:\n" + said[-2000:])
+                return launches
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        root = tempfile.mkdtemp(prefix="gpt_sharded_", dir=BUILD_DIR)
+        try:
+            # the single steps' inputs: the training cell's stage-1 state
+            # and Adam state, views 0 and 1, a target each, one draw
+            cfg, st, op = ctx["cfg"], ctx["state"], ctx["opt"]
+            size = ctx["gt"].shape[0]
+            gts = [ctx["gt"], ctx["gt"].flip(1)]
+            g = torch.Generator(dev).manual_seed(seed + 23)
+            noise = torch.randn(st.params["xyz"].shape, generator=g,
+                                device=dev)
+            step = {"inputs": os.path.join(root, "state.npz"),
+                    "angles": [0.5, 1.7], "times": [v.time
+                                                     for v in views[:2]],
+                    "capacity_multiplier": cfg.model.capacity_multiplier,
+                    "extent": ctx["extent"], "iteration": 19_990,
+                    "meshes": [[1, 4], [2, 2]]}
+            arrays = {f"params/{k}": v
+                      for k, v in flatten(st.params).items()}
+            arrays.update({f"opt/{k}": v for k, v in flatten(op).items()})
+            arrays.update({f"stats/{k}": getattr(st, k).cpu().numpy()
+                           for k in STATS})
+            arrays.update(alive=st.alive.cpu().numpy(), noise=noise.cpu()
+                          .numpy(), gts=torch.stack(gts).cpu().numpy())
+            np.savez(step["inputs"], **arrays)
+            cams = [views[k].to_device_dict(dev) for k in range(2)]
+            ts = [torch.tensor(v.time, dtype=torch.float32, device=dev)
+                  for v in views[:2]]
+            bg = torch.zeros(3, device=dev)
+            sh = cfg.model.sh_degree
+            it = step["iteration"]
+            step_refs = []
+            for s_, o_, m_ in (
+                    make_train_step(cfg, 1, size, size, ctx["extent"], sh,
+                                    50, bg)(st, op, cams[0], gts[0], ts[0],
+                                            it, noise=noise),
+                    make_train_step_batched(cfg, 1, size, size,
+                                            ctx["extent"], sh, 50, bg, 2)(
+                        st, op, cams, gts, ts, it - 1,
+                        noises=[noise, noise])):
+                step_refs.append((float(m_["loss"]), flatten(m_["grads"]),
+                                  s_.xyz_gradient_accum.cpu().numpy(),
+                                  s_.denom.cpu().numpy(),
+                                  s_.params["xyz"].cpu().numpy()))
+            del s_, o_, m_
+
+            # the Trainer runs' scene and their references, decoded here
+            scene = os.path.join(root, "scene")
+            write_nerf_synthetic(scene, sorted(
+                info.train_cameras + info.test_cameras,
+                key=lambda c: c.time), info.points, info.colors)
+            spec = {"scene": scene, "seed": seed, "device": dev.type,
+                    "runs": [[0, 1], [0, 2], [1, 1], [1, 2]],
+                    "iterations": 4, "step": step}
+            refs, loaded = [], None
+            for stage, n_data in spec["runs"]:
+                cfg_r = sharded_cfg(scene, rehearse, stage)
+                loaded = loaded or load_scene_info(cfg_r)
+                tr = Trainer(cfg_r, Scene(loaded, seed=seed), seed=seed,
+                             device=dev, quiet=True, n_data=n_data)
+                refs.append([
+                    float(tr.train_one(i)["loss"]) if n_data == 1
+                    else accumulated_iteration(tr, i, n_data)
+                    for i in range(1, spec["iterations"] + 1)])
+                del tr
+            if dev.type == "cuda":
+                build.library()          # built once, before the ranks
+                torch.cuda.empty_cache()
+                free, total = torch.cuda.mem_get_info()
+                log(f"device memory before the ranks: {free / 2**30:.1f} "
+                    f"GiB free of {total / 2**30:.1f}")
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(spec, root, 4, timeout=600)
+            spawn_s = time.perf_counter() - t0
+            for r in ranks:
+                for run in r["steps"] + r["runs"]:
+                    add(run["launches"])
+
+            # the single steps (inside the densify window, so the
+            # statistics move): the JAX package's bars for its sharded step
+            # against its single step (tests/test_parallel.py: the loss,
+            # xyz_gradient_accum); each gradient leaf within GCN_GRAD_TOL
+            # of its largest magnitude, the card-against-reference bound of
+            # the GCN phase (the band backward above prints what reordering
+            # the same sums alone moves a leaf at this width: 3e-4). The
+            # parameters after Adam are printed, not held: Adam's eps of
+            # 1e-15 turns the roundoff of a gradient that is ~0 (an
+            # occluded Gaussian's, the deform MLP's) into a +-lr step of
+            # either sign.
+            for i, (ref, mesh) in enumerate(zip(step_refs, step["meshes"])):
+                runs = [r["steps"][i] for r in ranks]
+                with np.load(os.path.join(root, f"step{i}.npz")) as f:
+                    got = {k: f[k] for k in f.files}
+                rel = abs(runs[0]["loss"] - ref[0]) / abs(ref[0])
+                g_err, g_leaf = max(
+                    (float(np.abs(got[f"grads/{k}"] - v).max())
+                     / max(float(np.abs(v).max()), 1e-30), k)
+                    for k, v in ref[1].items())
+                p_err = float(np.abs(got["xyz"] - ref[4]).max())
+                a_err = float(np.abs(got["xyz_gradient_accum"]
+                                     - ref[2]).max())
+                d_same = bool(np.array_equal(got["denom"], ref[3]))
+                one = len({run["digest"] for run in runs}) == 1
+                what = "make_train_step" if mesh[0] == 1 else \
+                    "the batched step of its 2 views"
+                log(f"one sharded step, mesh {mesh[0]} x {mesh[1]} (the "
+                    f"training cell's stage-1 state) against {what}"
+                    f": loss {runs[0]['loss']:.6f} / {ref[0]:.6f} (relative "
+                    f"{rel:.3e}); gradients: largest difference {g_err:.3e}"
+                    f" of a leaf's max ({g_leaf}); xyz after Adam "
+                    f"{p_err:.3e}; "
+                    f"xyz_gradient_accum {a_err:.3e}; denom equal {d_same}; "
+                    f"n_dropped {runs[0]['n_dropped']}; the 4 ranks' "
+                    f"states bit-identical {one}")
+                if not (rel <= 1e-4 and g_err <= GCN_GRAD_TOL
+                        and a_err <= 1e-5
+                        and d_same and one and not runs[0]["n_dropped"]):
+                    raise AssertionError(f"the {mesh} sharded step")
+
+            # the Trainers: warm-up iterations at the JAX package's 2e-4
+            # (its sharded Trainer test runs warm-up); stage 1 at its 3e-2
+            for i, ((stage, n_data), ref) in enumerate(zip(spec["runs"],
+                                                          refs)):
+                runs = [r["runs"][i] for r in ranks]
+                got = runs[0]["losses"]
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+                one = len({run["digest"] for run in runs}) == 1
+                bound = 2e-4 if stage == 0 else 3e-2
+                log(f"Trainer(n_devices=4, n_data={n_data}), stage {stage},"
+                    f" on 4 gloo ranks: mesh positions "
+                    f"{[run['mesh'] for run in runs]}; losses "
+                    f"{[round(x, 6) for x in got]} against the "
+                    f"single-device Trainer's {[round(x, 6) for x in ref]} "
+                    f"(largest relative difference {rel:.3e}, bound "
+                    f"{bound}); n_dropped {runs[0]['drops']}; the 4 ranks' "
+                    f"states bit-identical {one}; rank 0 ms per iteration "
+                    f"{[round(x, 1) for x in runs[0]['ms']]}; launches "
+                    f"(rank 0) {runs[0]['launches']}")
+                if not (rel <= bound and one) or any(runs[0]["drops"]):
+                    raise AssertionError(f"the sharded Trainer, stage "
+                                         f"{stage}, n_data {n_data}")
+            log(f"4 ranks: {spawn_s:.1f} s from spawn to exit")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def sharded_phases(cfg, dev, rstate, iteration, views, ctx, info, seed: int,
+                   rehearse: bool, reps: int):
+    """Phase 22 ("sharded"): the multi-GPU path (parallel/) on one card.
+
+    Bands, no collectives: phase 6's model and first view rendered as 4
+    bands of 13 tile rows (the last one reaching below the image) and as
+    50 bands of one row, each at its band multiplier; the bands stitch to
+    the whole render bit for bit on every tile row that no capped rect
+    touches (a band caps its clamped rect, the JAX order; the capped count
+    is printed), n_dropped 0, each band's slot count equal to
+    probe_slot_need(tile_band=...) on the bands no capped rect touches,
+    #1 equal to its plain version bit for bit on one band's stream; #1's
+    device ms on the 4 band streams beside the whole frame's.
+
+    The band backward: an L1 loss summed over the 4 bands' renders,
+    backpropagated band by band, against the whole frame's: the
+    per-Gaussian feature gradients (the stream backward's output) within
+    64 * 2^-24 * the largest |cumsum| of the streams' sorted cotangents
+    (phase 12b's bound: the same terms, reduced per band and then summed,
+    so the prefix sums associate otherwise), the Gaussians whose rects
+    touch a capped rect's rows left out; #6 equal to its plain version
+    bit for bit (sums="kernel") on one band, its device ms beside the
+    whole frame's.
+
+    The sharded step at world size 1 (nccl on the card, gloo in a
+    rehearsal; mesh 1 x 1) from the training cell's stage-1 state and its
+    stage-2 hash-grid state, against make_train_step on the same draws:
+    loss, every gradient leaf, the parameters, Adam moments and statistics
+    equal bit for bit (one band holds the frame, and the step then takes
+    the single step's loss), twice bit-identical; ms per step beside the
+    single step's.
+
+    Several ranks on the one card: nccl refuses two ranks on one GPU, so
+    where gloo's all-gather and all-reduces take CUDA tensors
+    (parallel/distributed.py:probe_gloo_cuda, 2 ranks), 4 ranks of this
+    script run on cuda:0, the kernel library built here first, each rank's
+    state held bit-identical to rank 0's. One sharded step on a 1 x 4 and
+    a 2 x 2 mesh from the training cell's stage-1 state, against
+    make_train_step (and the batched step of the two views) in this
+    process: the loss within 1e-4 relative and xyz_gradient_accum within
+    1e-5 (the JAX package's bars for its sharded step,
+    tests/test_parallel.py), every gradient leaf within 1e-3 of its
+    largest magnitude (GCN_GRAD_TOL, the GCN phase's card-against-
+    reference bound; the band backward prints what reordering the same
+    sums alone moves a leaf), denom equal. Then Trainer(n_devices=4,
+    n_data=1 and 2) over 4 warm-up and 4 stage-1 iterations of phase
+    18's scene (written as a D-NeRF tree), against the single-device
+    Trainer on the same cameras and draws (n_data=2: the two cameras
+    accumulated by make_train_step_batched): the warm-up losses within
+    the JAX package's 2e-4 relative (its tests/test_parallel.py:151, a
+    warm-up run), the stage-1 losses within its 3e-2 (:201): Adam's eps
+    of 1e-15 turns the roundoff of the deform MLP's ~0 gradients into
+    +-lr steps of either sign, and the trajectories drift (PERF.md §6,
+    PR 17). Where gloo refuses, the phase says so and runs the
+    world-size-1 checks only.
+
+    Returns the launches of the bands, the band backward, the sharded
+    steps and the ranks' Trainers (counts set to 0 before each)."""
+    import torch.distributed as dist
+
+    from gaussianprediction_tpu_torch import kernels
+    from gaussianprediction_tpu_torch.models.gaussians import get_shs
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.ops import rasterize_kernels as rk
+    from gaussianprediction_tpu_torch.ops.instance_stream import (
+        probe_slot_need,
+    )
+    from gaussianprediction_tpu_torch.ops.rasterize import render
+    from gaussianprediction_tpu_torch.parallel import distributed as PD
+    from gaussianprediction_tpu_torch.parallel.mesh import make_mesh
+    from gaussianprediction_tpu_torch.parallel.shard import (
+        band_geometry, band_multiplier, make_sharded_train_step,
+    )
+    from gaussianprediction_tpu_torch.train.step import (
+        deform_for_stage, make_train_step,
+    )
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    gt = ctx["gt"]
+    size = gt.shape[0]
+    grid_y = -(-size // 16)
+    cam = views[0].to_device_dict(dev)
+    t = torch.tensor(views[0].time, dtype=torch.float32, device=dev)
+    bg_t = torch.zeros(3, device=dev)
+    sh = cfg.model.sh_degree
+    mult = float(cfg.model.capacity_multiplier)
+    with torch.no_grad():
+        d = deform_for_stage(rstate.params, cfg, rstate, t, iteration, None,
+                             1)
+        shs = get_shs(rstate.params)
+    geo = (d.xyz, d.scaling, d.rotation, d.opacity)
+    kw = dict(sh_degree=sh, alive=rstate.alive)
+
+    with Phase("sharded: tile bands on one card (4 x 13 and 50 x 1 rows)"):
+        with torch.no_grad(), Capture([(rk, "rasterize_binned")]) as fcap:
+            whole = render(*geo, shs, cam, size, size, bg_t,
+                           capacity_multiplier=mult, **kw)
+        proj = whole["proj"]
+        area = (proj.tiles_max - proj.tiles_min).clamp(min=0).prod(-1)
+        capped = proj.visible & (area > 1024)
+        rows_ok = torch.ones(grid_y, dtype=torch.bool, device=dev)
+        for y0, y1 in zip(proj.tiles_min[capped, 1].tolist(),
+                          proj.tiles_max[capped, 1].tolist()):
+            rows_ok[y0:y1] = False
+        px_ok = rows_ok.repeat_interleave(16)[:size]
+        band_args = {}
+        for n_tile in (4, 50):
+            band, _ = band_geometry(size, n_tile)
+            bm = band_multiplier(mult, size, n_tile)
+            parts, probe_bad, probe_n, drops = [], 0, 0, 0
+            kernels.reset_launch_counts()
+            for k in range(n_tile):
+                tb = (k * band, band)
+                with torch.no_grad(), Capture([(rk, "rasterize_binned")]) \
+                        as bcap:
+                    out = render(*geo, shs, cam, size, size, bg_t,
+                                 capacity_multiplier=bm, tile_band=tb, **kw)
+                parts.append(out)
+                drops += int(out["n_dropped"])
+                if n_tile == 4:
+                    band_args[k] = bcap.args["rasterize_binned"][0]
+                if bool(rows_ok[k * band:(k + 1) * band].all()):
+                    probe_n += 1
+                    with torch.no_grad():
+                        need = int(probe_slot_need(
+                            *geo, cam, size, size, alive=rstate.alive,
+                            tile_band=tb))
+                    probe_bad += need != int(out["n_instances"])
+            sync(dev)
+            add(kernels.launch_counts)
+            same = {}
+            for key in ("render", "depth", "alpha", "tidx"):
+                st = torch.cat([p[key] for p in parts])[:size]
+                a, b = st[px_ok], whole[key][px_ok]
+                same[key] = bits_equal(a, b) if a.dtype == torch.float32 \
+                    else torch.equal(a, b)
+            slots = sum(int(p["n_instances"]) for p in parts)
+            log(f"bands {n_tile} x {band} rows (multiplier {bm:.3f}): "
+                f"stitched equal to the whole render bit for bit {same} on "
+                f"{int(rows_ok.sum())} of {grid_y} tile rows "
+                f"({int(capped.sum())} capped rects); n_dropped {drops}; "
+                f"slots {slots} (whole view {int(whole['n_instances'])}); "
+                f"probe_slot_need equal on"
+                f" {probe_n - probe_bad} of {probe_n} bands")
+            if not all(same.values()) or drops or probe_bad:
+                raise AssertionError(f"the {n_tile} bands")
+        with torch.no_grad():
+            a = rk.rasterize_binned(*band_args[1])
+            ref = rk.rasterize_binned_plain(*band_args[1])
+        sync(dev)
+        f_same = bits_equal(a, ref)
+        whole_fwd = lambda: rk.rasterize_binned(  # noqa: E731
+            *fcap.args["rasterize_binned"][0])
+        bands_fwd = lambda: [rk.rasterize_binned(*band_args[k])  # noqa: E731
+                             for k in range(4)]
+        each = [round(time_ms(lambda k=k: rk.rasterize_binned(
+            *band_args[k]), dev, reps), 4) for k in range(4)]
+        log(f"blend_fwd on band 1's stream equal to its plain version bit "
+            f"for bit {f_same}; device ms: whole frame "
+            f"{device_ms_of(whole_fwd, dev, reps)}, the 4 bands in turn "
+            f"{device_ms_of(bands_fwd, dev, reps)}; event ms: whole frame "
+            f"{time_ms(whole_fwd, dev, reps):.4f}, each band {each}")
+        if not f_same:
+            raise AssertionError("blend_fwd disagrees on a band stream")
+
+    with Phase("sharded: the band backward on one card (4 bands, L1)"):
+        denom = float(size * size * 3)
+        C = d.xyz.shape[0]
+
+        def leaves():
+            return [x.detach().clone().requires_grad_(True)
+                    for x in geo + (shs, torch.zeros((C, 2), device=dev))]
+
+        def sorted_mass(cap):
+            (gid, _, dinst), _ = cap.args["build_instances_bwd"]
+            srt = dinst[:10].index_select(1, torch.sort(
+                gid.to(torch.int32), stable=True).indices)
+            return float(torch.cumsum(srt, dim=1).abs().max())
+
+        lw = leaves()
+        with Capture([(IS, "build_instances_bwd"),
+                      (rk, "rasterize_binned_bwd")]) as wcap:
+            out = render(*lw[:5], cam, size, size, bg_t,
+                         capacity_multiplier=mult, means2d_dummy=lw[5], **kw)
+            ((out["render"] - gt).abs().sum() / denom).backward()
+        tol = sorted_mass(wcap)
+        lb = leaves()
+        band, _ = band_geometry(size, 4)
+        bm = band_multiplier(mult, size, 4)
+        dfeat = torch.zeros_like(wcap.out["build_instances_bwd"])
+        bwd_args = []
+        kernels.reset_launch_counts()
+        for k in range(4):
+            y0 = k * band * 16
+            rows = min(size, y0 + band * 16) - y0
+            with Capture([(IS, "build_instances_bwd"),
+                          (rk, "rasterize_binned_bwd")]) as bcap:
+                out = render(*lb[:5], cam, size, size, bg_t,
+                             capacity_multiplier=bm, tile_band=(k * band,
+                                                                band),
+                             means2d_dummy=lb[5], **kw)
+                ((out["render"][:rows] - gt[y0:y0 + rows]).abs().sum()
+                 / denom).backward()
+            dfeat += bcap.out["build_instances_bwd"]
+            tol += sorted_mass(bcap)
+            bwd_args.append(bcap.args["rasterize_binned_bwd"][0])
+        sync(dev)
+        add(kernels.launch_counts)
+        tol *= 64 * EPS32
+        # the Gaussians whose rect rows miss every row a capped rect
+        # touches: the counts of such rows below each row, differenced
+        bad = torch.cat([rows_ok.new_zeros(1, dtype=torch.int64),
+                         torch.cumsum((~rows_ok).to(torch.int64), 0)])
+        ok = bad[proj.tiles_max[:, 1].clamp(0, grid_y).long()] == \
+            bad[proj.tiles_min[:, 1].clamp(0, grid_y).long()]
+        derr = float((dfeat - wcap.out["build_instances_bwd"])[ok].abs()
+                     .max())
+        worst = max(float((x.grad - y.grad).abs().max())
+                    / max(float(y.grad.abs().max()), 1e-30)
+                    for x, y in zip(lb, lw))
+        a = rk.rasterize_binned_bwd(*bwd_args[1])
+        b = rk.rasterize_binned_bwd(*bwd_args[1])
+        ref = rk.rasterize_binned_bwd_plain(*bwd_args[1],
+                                            sums=wrapper_sums(dev))
+        sync(dev)
+        b_same = bits_equal(a, ref) and bits_equal(a, b)
+        whole_bwd = lambda: rk.rasterize_binned_bwd(  # noqa: E731
+            *wcap.args["rasterize_binned_bwd"][0])
+        bands_bwd = lambda: [rk.rasterize_binned_bwd(*x)  # noqa: E731
+                             for x in bwd_args]
+        each = [round(time_ms(lambda x=x: rk.rasterize_binned_bwd(*x), dev,
+                              reps), 4) for x in bwd_args]
+        log(f"band backward: per-Gaussian feature gradients summed over the "
+            f"4 bands against the whole frame's, on {int(ok.sum())} of {C} "
+            f"Gaussians: max |diff| {derr:.3e} (64 * 2^-24 * max |cumsum| "
+            f"{tol:.3e}); leaf gradients: largest difference {worst:.3e} of "
+            f"a leaf's max; blend_bwd on band 1 equal to its plain version "
+            f"bit for bit and across 2 launches {b_same}; device ms: whole "
+            f"frame {device_ms_of(whole_bwd, dev, reps)}, the 4 bands in "
+            f"turn {device_ms_of(bands_bwd, dev, reps)}; event ms: whole "
+            f"frame {time_ms(whole_bwd, dev, reps):.4f}, each band {each}")
+        if not (derr <= tol and b_same):
+            raise AssertionError("the band backward")
+
+    env = {"GPT_DIST": "1", "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with Phase("sharded: the sharded step at world size 1"):
+            PD.maybe_initialize_distributed(device=dev)
+            mesh = make_mesh(1, 1)
+            extent = ctx["extent"]
+            s2 = ctx["s2_cfg"].train.second_stage_iteration
+            for stage, scfg, st, op, it in (
+                    (1, ctx["cfg"], ctx["state"], ctx["opt"], 20_005),
+                    (2, ctx["s2_cfg"], ctx["s2_trans"], ctx["s2_opt"],
+                     s2 + 1)):
+                g = torch.Generator(dev).manual_seed(seed + 22)
+                rows = st.params["xyz" if stage == 1 else "super_xyz"]
+                noise = torch.randn(rows.shape, generator=g, device=dev)
+                tn = torch.randn((), generator=g, device=dev)
+                single = make_train_step(scfg, stage, size, size, extent, sh,
+                                         50, bg_t)
+                step, _ = make_sharded_train_step(
+                    scfg, stage, size, size, extent, sh, 50, bg_t, mesh,
+                    capacity_multiplier=scfg.model.capacity_multiplier)
+                sargs = (st, op, cam, gt, t, it, None, None, noise, tn)
+                margs = (st, op, [cam], [gt], [t], it, None, None, noise,
+                         [tn])
+                ref = checked(single(*sargs), f"stage-{stage} single step")
+                got, n1 = counted_launches(lambda: checked(
+                    step(*margs), f"stage-{stage} sharded step"), dev)
+                add(n1)
+                again = step(*margs)
+                same = bits_equal(got[2]["loss"], ref[2]["loss"]) and all(
+                    tree_diff(x, y)[0] for x, y in (
+                        (got[2]["grads"], ref[2]["grads"]),
+                        (got[0].params, ref[0].params),
+                        ([got[1]["m"], got[1]["v"]],
+                         [ref[1]["m"], ref[1]["v"]])))
+                stats = all(torch.equal(getattr(got[0], k), getattr(
+                    ref[0], k)) for k in ("xyz_gradient_accum", "denom",
+                                          "max_radii2D"))
+                twice = tree_diff([again[0].params, again[2]["grads"]],
+                                  [got[0].params, got[2]["grads"]])[0]
+                ms_m = step_ms(step, margs, dev, 3)
+                ms_s = step_ms(single, sargs, dev, 3)
+                log(f"stage {stage} ({dist.get_backend()}, mesh 1 x 1): "
+                    f"loss {float(got[2]['loss']):.6f}; loss, gradients, "
+                    f"params and moments equal to make_train_step's bit "
+                    f"for bit {same}, statistics {stats}; twice "
+                    f"bit-identical {twice}; ms per step sharded "
+                    f"{[round(x, 3) for x in ms_m]}, single "
+                    f"{[round(x, 3) for x in ms_s]}; launches {n1}")
+                if not (same and stats and twice):
+                    raise AssertionError(f"the stage-{stage} sharded step")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    add(multi_rank_phase(dev, info, ctx, views, seed, rehearse))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
                     help="CPU, 2k Gaussians, 128x128, plain versions")
+    ap.add_argument("--child", default=None,
+                    help=argparse.SUPPRESS)   # a rank of phase 22
     args = ap.parse_args()
+    if args.child:
+        return child_main(args.child)
 
     # the classic phases run the classic blend; phase 12 sets each variant
     for k in [k for k in os.environ if k.startswith("GPT_BLEND_")]:
@@ -3499,6 +4247,12 @@ def main() -> int:
     for k in CLI_KERNELS:
         launches[k] = launches.get(k, 0) + claunches.get(k, 0) + \
             hlaunches.get(k, 0)
+    plaunches = sharded_phases(cfg, dev, state, iteration, views, ctx, info,
+                               args.seed, args.rehearse, reps)
+    log(f"sharded phase: launches {plaunches}")
+    for k, v in plaunches.items():
+        if k in launches:
+            launches[k] += v
 
     line = {"kernels": [
         {

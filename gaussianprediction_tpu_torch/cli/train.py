@@ -11,8 +11,15 @@ reproduce the reference's training scripts; any flag overrides the preset.
 The flags, their defaults and the resolved config are train.py's: the same
 argv gives the same cfg.json, written to the model dir. Runs on the card
 (GPT_FORCE_CPU=1: on the CPU). Flags whose path the port lacks raise
-NotImplementedError naming their ROADMAP.md item: --n_devices > 1,
---steps_per_call > 1 and --profile_steps > 0.
+NotImplementedError naming their ROADMAP.md item: --steps_per_call > 1
+and --profile_steps > 0.
+
+On several GPUs, one process a GPU (parallel/distributed.py):
+  torchrun --standalone --nproc_per_node N \
+      -m gaussianprediction_tpu_torch.cli.train -s <scene_dir> \
+      -m <model_dir> --n_devices N [--n_data D]
+trains on D camera groups of N / D tile bands each (--n_data defaults to
+--n_devices); rank 0 alone writes the model dir.
 """
 from __future__ import annotations
 
@@ -64,11 +71,12 @@ def build_parser():
     p.add_argument("--batch", type=int, default=None,
                    help="gradient accumulation: renders per optimizer step")
     p.add_argument("--n_devices", type=int, default=1,
-                   help=">1: the sharded multi-device train path (not "
-                        "ported: ROADMAP.md Queue 1 item 8)")
+                   help=">1: the sharded multi-GPU train path, one process "
+                        "a GPU under torchrun")
     p.add_argument("--n_data", type=int, default=None,
                    help="data-parallel camera groups within --n_devices "
-                        "(read only with --n_devices > 1)")
+                        "(default: --n_devices; read only with --n_devices "
+                        "> 1)")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help=">1: several iterations per device call (not "
                         "ported: ROADMAP.md Queue 1 item 1)")
@@ -123,7 +131,6 @@ def refuse_unported(cfg, args) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for a setting
     whose path the port lacks."""
     refused = [
-        (args.n_devices > 1, "--n_devices > 1 (the sharded step)", 8),
         (args.steps_per_call > 1,
          "--steps_per_call > 1 (several steps per device call)", 1),
         (cfg.train.profile_steps > 0, "--profile_steps (the profiler hook)",
@@ -140,41 +147,57 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = resolve_config(args)
     refuse_unported(cfg, args)
+    from gaussianprediction_tpu_torch.parallel.distributed import (
+        LAUNCH, maybe_initialize_distributed, opted_in, rank_device,
+    )
+
+    if args.n_devices > 1 and not opted_in():
+        raise RuntimeError(f"--n_devices {args.n_devices} runs one process "
+                           f"a GPU; launch it as: {LAUNCH}")
     dev = device_from_env()
+    multi = maybe_initialize_distributed(device=dev)
+    rank = 0
+    if multi:
+        import torch.distributed as dist
+
+        dev, rank = rank_device(dev), dist.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     from gaussianprediction_tpu_torch.data.scene import (
         Scene, load_scene_info,
     )
     from gaussianprediction_tpu_torch.train.loop import Trainer
 
-    os.makedirs(cfg.model_path, exist_ok=True)
-    with open(os.path.join(cfg.model_path, "cfg.json"), "w") as f:
-        f.write(cfg.to_json())
+    if rank == 0:
+        os.makedirs(cfg.model_path, exist_ok=True)
+        with open(os.path.join(cfg.model_path, "cfg.json"), "w") as f:
+            f.write(cfg.to_json())
 
-    print(f"Loading scene from {cfg.source_path}")
+    say(f"Loading scene from {cfg.source_path}")
     info = load_scene_info(cfg, lazy=True)
     scene = Scene(info, seed=cfg.train.seed)
-    print(
+    say(
         f"{len(scene.train_cameras)} train / {len(scene.test_cameras)} test "
         f"cameras, extent {scene.cameras_extent:.3f}, on {dev}"
     )
     try:
-        trainer = Trainer(cfg, scene, device=dev)
+        trainer = Trainer(cfg, scene, device=dev, n_devices=args.n_devices,
+                          n_data=args.n_data or args.n_devices)
         if args.start_checkpoint:
             trainer.load_checkpoint(args.start_checkpoint)
-            print(f"resumed from {args.start_checkpoint} @ "
-                  f"{trainer.iteration}")
+            say(f"resumed from {args.start_checkpoint} @ "
+                f"{trainer.iteration}")
         trainer.run(model_path=cfg.model_path)
     finally:
         scene.close()
-    trainer.save_checkpoint(
-        os.path.join(cfg.model_path, f"chkpnt{trainer.iteration}.npz")
-    )
+    if rank == 0:
+        trainer.save_checkpoint(
+            os.path.join(cfg.model_path, f"chkpnt{trainer.iteration}.npz"))
     st = scene.decode_stats
-    print(f"image decode: {st['waited']} of {st['draws']} camera draws "
-          f"found their image not decoded yet ({st['wait_ms']:.1f} ms "
-          f"waited on the decode workers)")
-    print("\nTraining complete.")
+    say(f"image decode: {st['waited']} of {st['draws']} camera draws "
+        f"found their image not decoded yet ({st['wait_ms']:.1f} ms "
+        f"waited on the decode workers)")
+    say("\nTraining complete.")
     return trainer
 
 

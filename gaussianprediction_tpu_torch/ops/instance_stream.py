@@ -96,19 +96,31 @@ def _capped_rect(tmin, tmax, center_px, max_tiles: int):
 
 
 def probe_slot_need(xyz, scaling, rotation, opacity, cam, width: int,
-                    height: int, alive=None, max_tiles: int = 1024):
+                    height: int, alive=None, max_tiles: int = 1024,
+                    tile_band=None):
     """Projection-only slot count for one camera: the slots
     build_instances_fwd would emit (capped exact-support rects plus the
     >= 1 singleton every Gaussian owns). scaling/opacity activated;
-    rotation may be unnormalized."""
+    rotation may be unnormalized.
+
+    tile_band=(ty0, n_band) counts what a band of tile rows streams, as
+    the JAX package counts it: the capped full-frame rect's rows clipped
+    to [ty0, ty0 + n_band). The singleton stays, an N-slot floor under
+    every band. render(tile_band=...) clamps before it caps, so the two
+    agree wherever no rect is capped."""
     from gaussianprediction_tpu_torch.ops import projection as PJ
 
     rot = rotation / torch.clamp(
         torch.linalg.norm(rotation, dim=-1, keepdim=True), min=1e-12)
     proj = PJ.project_from_params(xyz, scaling, rot, cam, width, height,
                                   alive=alive, opacity=opacity)
-    _, _, rw, rh = _capped_rect(proj.tiles_min, proj.tiles_max, proj.mean2d,
-                                max_tiles)
+    _, y0, rw, rh = _capped_rect(proj.tiles_min, proj.tiles_max,
+                                 proj.mean2d, max_tiles)
+    if tile_band is not None:
+        ty0, n_band = int(tile_band[0]), int(tile_band[1])
+        y1 = torch.clamp(y0, ty0, ty0 + n_band)
+        y2 = torch.clamp(y0 + rh, ty0, ty0 + n_band)
+        rh = torch.clamp(y2 - y1, min=0)
     zero = torch.zeros_like(rw)
     rw = torch.where(proj.visible, rw, zero)
     rh = torch.where(proj.visible, rh, zero)

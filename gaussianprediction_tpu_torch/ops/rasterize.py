@@ -98,10 +98,18 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
     in "n_dropped" so callers can size it for exact renders.
     fast_binning=False bins through ops/binning.py (a depth sort, a
     stable tile sort, CHUNK-aligned segments) in place of the fused
-    stream; the outputs are the same where neither drops."""
-    if tile_band is not None:
-        raise NotImplementedError(
-            "tile_band is not ported yet (ROADMAP.md, Queue 1 item 8)")
+    stream; the outputs are the same where neither drops.
+
+    tile_band=(ty0, n_band) renders only the band of tile rows [ty0, ty0 +
+    n_band), the framebuffer split of the sharded step
+    (parallel/shard.py): rects are clamped to the band's rows (a rect the
+    clamp empties is invisible there), the means shift up by ty0 * 16
+    pixels, and the band renders as a standalone grid_x x n_band grid.
+    "render", "depth", "alpha" and "tidx" are the band's n_band * 16 rows
+    (past `height` for a band that reaches below the image: callers
+    crop); "radii", "visibility_filter" and "proj" stay those of the whole
+    view. The max-tiles cap applies after the clamp, so a band equals the
+    same rows of the whole render where no rect is capped."""
     N = xyz.shape[0]
     dev = xyz.device
     grid_x = (width + TILE - 1) // TILE
@@ -136,10 +144,28 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
         proj = projection.project_from_params(
             xyz, scaling, rotation, cam, width, height,
             scaling_modifier=scaling_modifier, alive=alive, opacity=op_rect)
+    full_proj = proj
     mean2d = proj.mean2d
     if means2d_dummy is not None:
         mean2d = mean2d + means2d_dummy * torch.tensor(
             [width * 0.5, height * 0.5], dtype=torch.float32, device=dev)
+    band_height = height
+    if tile_band is not None:
+        ty0, n_band = int(tile_band[0]), int(tile_band[1])
+        bmin_y = torch.clamp(proj.tiles_min[:, 1], ty0, ty0 + n_band) - ty0
+        bmax_y = torch.clamp(proj.tiles_max[:, 1], ty0, ty0 + n_band) - ty0
+        visible_b = proj.visible & (bmax_y > bmin_y)
+        mean2d = mean2d - torch.tensor([0.0, ty0 * TILE],
+                                       dtype=torch.float32, device=dev)
+        proj = projection.Projected(
+            mean2d=mean2d, conic=proj.conic, depth=proj.depth,
+            radius=torch.where(visible_b, proj.radius,
+                               torch.zeros_like(proj.radius)),
+            tiles_min=torch.stack([proj.tiles_min[:, 0], bmin_y], dim=-1),
+            tiles_max=torch.stack([proj.tiles_max[:, 0], bmax_y], dim=-1),
+            visible=visible_b)
+        grid_y = n_band
+        band_height = n_band * TILE
 
     if colors_precomp is None:
         dirs = xyz - cam["camera_center"][None, :]
@@ -159,7 +185,7 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
     if not fast_binning:
         with torch.no_grad():
             bins = binning.bin_gaussians(proj._replace(
-                mean2d=mean2d.detach()), width, height, capacity,
+                mean2d=mean2d.detach()), width, band_height, capacity,
                 align=CHUNK)
         inst = (_BinnedInstances.apply(feat, bins.gauss_id)
                 if feat.requires_grad
@@ -187,7 +213,7 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
                                     stream.tile_end, grid_x, grid_y,
                                     need_tidx)
 
-    img = _assemble(out_f, grid_x, grid_y, height, width)  # [H, W, 8]
+    img = _assemble(out_f, grid_x, grid_y, band_height, width)  # [h, W, 8]
     T_final = img[..., rk.O_T]
     rgb = img[..., rk.O_R:rk.O_R + 3] + T_final[..., None] * bg
     tidx = torch.where(img[..., rk.O_WMAX] > 0.0, img[..., rk.O_GID],
@@ -197,9 +223,9 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
         "depth": img[..., rk.O_Z],
         "alpha": 1.0 - T_final,
         "tidx": tidx,
-        "radii": proj.radius,
-        "visibility_filter": proj.radius > 0,
+        "radii": full_proj.radius,
+        "visibility_filter": full_proj.radius > 0,
         "n_dropped": stream.n_dropped,
         "n_instances": stream.n_total,
-        "proj": proj,
+        "proj": full_proj,
     }

@@ -29,9 +29,17 @@ one optimizer step (train_batch, the JAX Trainer's; host events at the
 batch's last iteration only), wherever _chunk_end finds a whole batch
 free of host events; elsewhere single iterations run.
 
+n_devices > 1 trains on a ('data', 'tile') mesh of ranks (parallel/):
+every rank of an initialized process group (torchrun) runs a Trainer with
+the same arguments; n_data camera groups of n_devices / n_data tile bands
+each take one sharded step an iteration (train_one_sharded). Every rank
+draws the same cameras and the same random numbers and runs every host
+event on its replica of the state, so the replicas stay equal; only rank
+0 prints and writes model_path.
+
 Not ported yet, and raising NotImplementedError: several steps per call
-(steps_per_call > 1, ROADMAP.md Queue 1 item 1(b)), several devices (item
-8) and the profiler hook (cfg.train.profile_steps > 0, item 1).
+(steps_per_call > 1, ROADMAP.md Queue 1 item 1(b)) and the profiler hook
+(cfg.train.profile_steps > 0, item 1).
 """
 from __future__ import annotations
 
@@ -215,22 +223,28 @@ def stage_transition(state: GaussianState, opt_state, cfg: Config,
 class Trainer:
     """Owns the training state; `run()` trains to cfg.opt.iterations.
 
-    Single device, one step per call: `device` (None means CUDA) holds the
-    state and runs every step and event."""
+    One step per call: `device` (None means CUDA) holds the state and runs
+    every step and event. n_devices > 1 (the module docstring) needs a
+    process group of n_devices ranks, n_devices % n_data == 0, and this
+    rank's device (cuda:LOCAL_RANK, or the CPU)."""
 
     def __init__(self, cfg: Config, scene, seed: Optional[int] = None,
                  device=None, log_every: int = 100, quiet: bool = False,
-                 steps_per_call: int = 1, n_devices: int = 1):
+                 steps_per_call: int = 1, n_devices: int = 1,
+                 n_data: int = 1):
         from gaussianprediction_tpu_torch.device import resolve_device
 
         if steps_per_call > 1:
             raise NotImplementedError(
                 "steps_per_call > 1 (several steps per device call) is not "
                 "ported yet (ROADMAP.md, Queue 1 item 1(b): graph capture)")
+        self.mesh = None
+        self.n_data = n_data
+        self.rank = 0
         if n_devices > 1:
-            raise NotImplementedError(
-                "n_devices > 1 (the sharded step) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8)")
+            self.mesh = _trainer_mesh(n_devices, n_data)
+            self.rank = self.mesh.rank
+            quiet = quiet or self.rank != 0
         self.cfg = cfg
         self.scene = scene
         self.device = resolve_device(device)
@@ -252,6 +266,7 @@ class Trainer:
         self.extent = float(scene.cameras_extent)
         self._steps: Dict = {}
         self._batched_steps: Dict = {}   # (stage, batch) -> batched step
+        self._sharded_steps: Dict = {}   # (stage, multiplier) -> step
         self._views: Dict = {}     # camera -> (device dict, time, gt)
         self._history = []
         self._did_stage3 = False
@@ -291,6 +306,15 @@ class Trainer:
         time_noise = self._randn(()) if self.cfg.train.use_time_decay \
             else None
         return noise, time_noise
+
+    def _sharded_noise(self, stage: int):
+        """The sharded step's draws: _step_noise's, then one more time
+        noise for each further data group."""
+        noise, time_noise = self._step_noise(stage)
+        if time_noise is None:
+            return noise, None
+        return noise, [time_noise] + [self._randn(())
+                                      for _ in range(self.n_data - 1)]
 
     def _densify_noise(self):
         """The split's N(0,1) offsets [2, C, 3], before the scale."""
@@ -359,6 +383,22 @@ class Trainer:
                 self.cfg.model.sh_degree, self.scene.total_frame, self._bg,
                 batch)
         return self._batched_steps[key]
+
+    def _sharded_step_fn(self, stage: int):
+        """The sharded step at the current capacity multiplier (a re-probe
+        reaches the next step, as it reaches the single one)."""
+        mult = float(self.cfg.model.capacity_multiplier)
+        key = (stage, mult)
+        if key not in self._sharded_steps:
+            from gaussianprediction_tpu_torch.parallel.shard import (
+                make_sharded_train_step,
+            )
+
+            self._sharded_steps[key] = make_sharded_train_step(
+                self.cfg, stage, self.width, self.height, self.extent,
+                self.cfg.model.sh_degree, self.scene.total_frame, self._bg,
+                self.mesh, capacity_multiplier=mult)[0]
+        return self._sharded_steps[key]
 
     def _chunk_end(self, a: int, iterations: int, span: int) -> int:
         """The largest b >= a, at most a + span - 1, such that iterations
@@ -521,13 +561,17 @@ class Trainer:
         return report
 
     # ---- main loop ---------------------------------------------------------
-    def train_one(self, iteration: int) -> Dict:
-        cfg = self.cfg
+    def _start(self, iteration: int) -> int:
+        """The host events that open an iteration (the SH bump every 1k, a
+        stage transition); returns its stage."""
         if iteration % 1000 == 0 and \
-                self.active_sh_degree < cfg.model.sh_degree:
+                self.active_sh_degree < self.cfg.model.sh_degree:
             self.active_sh_degree += 1
         self._maybe_stage_transition(iteration)
-        stage = stage_of(cfg, iteration)
+        return stage_of(self.cfg, iteration)
+
+    def train_one(self, iteration: int) -> Dict:
+        stage = self._start(iteration)
         cam = self.scene.next_train_camera()
         cam_d, t, gt = self._view(cam)
         noise, time_noise = self._step_noise(stage)
@@ -540,17 +584,29 @@ class Trainer:
         self._densification(iteration, stage)
         return metrics
 
+    def train_one_sharded(self, iteration: int) -> Dict:
+        """One sharded step: n_data cameras (their gradients summed over
+        'data'), each frame split into tile bands over 'tile'."""
+        stage = self._start(iteration)
+        cams = [self.scene.next_train_camera() for _ in range(self.n_data)]
+        views = [self._view(c) for c in cams]
+        noise, time_noises = self._sharded_noise(stage)
+        self.state, self.opt_state, metrics = self._sharded_step_fn(stage)(
+            self.state, self.opt_state, [v[0] for v in views],
+            [v[2] for v in views], [v[1] for v in views], iteration,
+            active_deg=self.active_sh_degree, noise=noise,
+            time_noises=time_noises)
+        metrics.pop("grads", None)
+        self._last_cam = cams[-1]
+        self._densification(iteration, stage)
+        return metrics
+
     def train_batch(self, a: int, b: int) -> Dict:
         """Gradient accumulation over iterations [a, b] with ONE optimizer
         step (the reference's --batch). The SH bump and the stage
         transition happen at a, the other host events at b only (the
         caller picks [a, b] by _chunk_end)."""
-        cfg = self.cfg
-        if a % 1000 == 0 and \
-                self.active_sh_degree < cfg.model.sh_degree:
-            self.active_sh_degree += 1
-        self._maybe_stage_transition(a)
-        stage = stage_of(cfg, a)
+        stage = self._start(a)
         cams = [self.scene.next_train_camera() for _ in range(b - a + 1)]
         views = [self._view(c) for c in cams]
         draws = [self._step_noise(stage) for _ in cams]
@@ -573,7 +629,9 @@ class Trainer:
                 "cfg.train.profile_steps > 0 (the profiler hook) is not "
                 "ported yet (ROADMAP.md, Queue 1 item 1)")
         iterations = iterations or cfg.opt.iterations
-        model_path = model_path or cfg.model_path
+        # under a mesh every rank trains and rank 0 alone reports and writes
+        model_path = (model_path or cfg.model_path) if self.rank == 0 \
+            else None
         if model_path and self.tb is None:
             from gaussianprediction_tpu_torch.utils.tb_writer import (
                 SummaryWriter,
@@ -587,7 +645,10 @@ class Trainer:
         while iteration < iterations:
             a = iteration + 1
             b = self._chunk_end(a, iterations, batch) if batch > 1 else a
-            if b - a + 1 == batch > 1:
+            if self.mesh is not None:
+                metrics = self.train_one_sharded(a)
+                iteration = a
+            elif b - a + 1 == batch > 1:
                 metrics = self.train_batch(a, b)
                 iteration = b
             else:
@@ -597,7 +658,7 @@ class Trainer:
             if iteration - self._last_log >= self.log_every:
                 self._last_log = iteration
                 t_last = self._log(iteration, iterations, metrics, t0, t_last)
-            if iteration in cfg.train.test_iterations:
+            if iteration in cfg.train.test_iterations and self.rank == 0:
                 self.training_report(iteration)
             if model_path and iteration % 5000 == 0:
                 self._save_train_images(model_path, iteration)
@@ -701,3 +762,23 @@ class Trainer:
                                     self.iteration // 1000)
         if self.cfg.model.capacity_auto:
             self._auto_capacity(reason="load")
+
+
+def _trainer_mesh(n_devices: int, n_data: int):
+    """The Trainer's mesh: n_data x (n_devices / n_data) over every rank of
+    the process group, which must have n_devices ranks."""
+    import torch.distributed as dist
+
+    from gaussianprediction_tpu_torch.parallel.distributed import LAUNCH
+    from gaussianprediction_tpu_torch.parallel.mesh import make_mesh
+
+    if n_data < 1 or n_devices % n_data:
+        raise ValueError(f"n_devices ({n_devices}) must be a multiple of "
+                         f"n_data ({n_data})")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n_devices:
+        raise RuntimeError(
+            f"n_devices={n_devices} needs a process group of {n_devices} "
+            f"ranks, one a GPU; this process is one of {world}. Launch it "
+            f"as: {LAUNCH}")
+    return make_mesh(n_data=n_data, n_tile=n_devices // n_data)

@@ -101,6 +101,18 @@ def render_at_time(params, cfg: Config, state: GaussianState, cam, t,
     return pkg, out
 
 
+def trainable_params(state: GaussianState, groups):
+    """(names of the params of the optimizer `groups`, the params with
+    those leaves detached and requiring grad)."""
+    trainable = [k for k in state.params
+                 if opt_mod.GROUP_OF_PARAM[k] in groups]
+    params = dict(state.params)
+    for k in trainable:
+        params[k] = opt_mod.tree_map(
+            lambda x: x.detach().requires_grad_(True), params[k])
+    return trainable, params
+
+
 def _step_parts(cfg: Config, stage: int, width: int, height: int,
                 spatial_scale: float, sh_degree: int, bg):
     """The two halves of a step, shared by make_train_step and
@@ -113,12 +125,7 @@ def _step_parts(cfg: Config, stage: int, width: int, height: int,
 
     def loss_and_grads(state, cam, gt, t, iteration, generator, active_deg,
                        noise):
-        trainable = [k for k in state.params
-                     if opt_mod.GROUP_OF_PARAM[k] in groups]
-        params = dict(state.params)
-        for k in trainable:
-            params[k] = opt_mod.tree_map(
-                lambda x: x.detach().requires_grad_(True), params[k])
+        trainable, params = trainable_params(state, groups)
         dummy = torch.zeros((state.capacity, 2), dtype=torch.float32,
                             device=state.device, requires_grad=True)
         pkg, dout = render_at_time(
@@ -151,8 +158,12 @@ def _step_parts(cfg: Config, stage: int, width: int, height: int,
                iteration: int, t_resid, delta_xyz):
         """Statistics from the carrier's gradient vs_grads, the radii and
         the visibility, the teacher residual at time t_resid against
-        delta_xyz, then Adam at `iteration`."""
-        vs_norm = torch.linalg.norm(vs_grads, dim=-1)
+        delta_xyz (none when delta_xyz is None: the sharded step's, as
+        the JAX sharded step keeps no teacher statistics), then Adam at
+        `iteration`."""
+        # row-major: the norm's rounding depends on the layout, and the
+        # sharded step's all-reduced carrier gradient is row-major
+        vs_norm = torch.linalg.norm(vs_grads.contiguous(), dim=-1)
         do_stats = vis if iteration < cfg.opt.densify_until_iter \
             else torch.zeros_like(vis)
         if stage >= 2 and iteration < cfg.train.adaptive_end_iter + s2:
@@ -170,7 +181,8 @@ def _step_parts(cfg: Config, stage: int, width: int, height: int,
                 vs_norm, state.xyz_gradient_accum_max),
             denom=state.denom + do_stats.to(torch.float32),
         )
-        if stage >= 2 and cfg.train.densify_from_teaching:
+        if stage >= 2 and cfg.train.densify_from_teaching and \
+                delta_xyz is not None:
             in_window = (cfg.train.adaptive_from_iter + s2 <= iteration
                          < cfg.train.adaptive_end_iter + s2)
             if in_window:

@@ -5,7 +5,8 @@ resolve_config of the port and of train.py give the same config JSON for
 the same argv, the parsers have the same flags and defaults, and a port
 cfg.json loads in the JAX package's Config. The flags whose path the port
 lacks raise NotImplementedError naming their ROADMAP.md item, before any
-file is written; --weight_encoder brick|fourier, --distill_init_steps,
+file is written (--n_devices > 1 without torchrun raises naming the
+launch line); --weight_encoder brick|fourier, --distill_init_steps,
 --batch 2 and --step_opacity --use_time_decay train across both stage
 transitions. The CLIs refuse to run without a card
 unless GPT_FORCE_CPU=1. End to end, under GPT_FORCE_CPU=1, on a 32x32 D-NeRF
@@ -86,8 +87,11 @@ def test_parser_flags_and_defaults_equal():
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
     model = tmp_path / "m"
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md, Queue 1 item {item}\)"):
+    # item 8 (several GPUs) is ported: without torchrun's process group,
+    # --n_devices > 1 raises naming the launch line
+    err, match = (RuntimeError, "torchrun --standalone") if item == 8 else \
+        (NotImplementedError, rf"ROADMAP\.md, Queue 1 item {item}\)")
+    with pytest.raises(err, match=match):
         TT.main(["-s", str(tmp_path), "-m", str(model), "--preset", "test",
                  *flags])
     assert not model.exists()

@@ -46,7 +46,12 @@ forward and backward kernels equal their plain versions, and every
 variant the classic kernels, on its CHUNK-aligned stream; a render and a
 step under GPT_ELLIPSE_CULL=1 keep their bits; a batched step repeats bit
 for bit and sums its members' gradients; evaluate_dirs runs on the card's
-machine without imageio. Whether a
+machine without imageio. The multi-GPU path on the one card: tile-band
+renders stitch to the whole render bit for bit, an L1 loss backpropagated
+band by band matches the whole frame's within the streams' cumsum
+roundoff, the sharded step on a one-rank nccl mesh equals the single step
+bit for bit, and two gloo ranks on cuda:0 (where gloo takes CUDA tensors)
+match the single step within the JAX package's bounds. Whether a
 card is present is decided inside the `cuda_device` fixture; without one
 every test here skips.
 
@@ -1050,3 +1055,220 @@ def test_evaluate_dirs_on_card(cuda_device, tmp_path):
     with open(tmp_path / "results.json") as f:
         assert json.load(f)["PSNR"] == res["mean"]["PSNR"]
     assert len(os.listdir(tmp_path / "deltas")) == 2
+
+
+# ---- the multi-GPU path (parallel/) on the one card ----------------------
+def _bands_of(height, n_tile):
+    from gaussianprediction_tpu_torch.parallel.shard import band_geometry
+
+    band, _ = band_geometry(height, n_tile)
+    return [(k * band, band) for k in range(n_tile)]
+
+
+def test_band_renders_stitch_on_card(cuda_device):
+    """render(tile_band=...) on the card: 3 bands of 3 tile rows (the last
+    reaching below the 128-pixel image) and 8 of one row stitch to the
+    whole render bit for bit (no rect of the view is capped), nothing
+    dropped, #1 launched once a band."""
+    from gaussianprediction_tpu_torch.models.gaussians import get_shs
+    from gaussianprediction_tpu_torch.ops.rasterize import render
+    from gaussianprediction_tpu_torch.train.step import deform_for_stage
+
+    cfg, state, _, cam, _, t = _binning_model(cuda_device)
+    with torch.no_grad():
+        d = deform_for_stage(state.params, cfg, state, t, 2000, None, 1)
+        args = (d.xyz, d.scaling, d.rotation, d.opacity,
+                get_shs(state.params), cam, 128, 128,
+                torch.zeros(3, device=cuda_device))
+        whole = render(*args, alive=state.alive, capacity_multiplier=24)
+        proj = whole["proj"]
+        assert int((proj.tiles_max - proj.tiles_min).clamp(min=0)
+                   .prod(-1).max()) <= 1024
+        for n_tile in (3, 8):
+            before = launch_counts["blend_fwd"]
+            parts = [render(*args, alive=state.alive, capacity_multiplier=24,
+                            tile_band=b) for b in _bands_of(128, n_tile)]
+            torch.cuda.synchronize()
+            assert launch_counts["blend_fwd"] == before + n_tile
+            assert all(int(p["n_dropped"]) == 0 for p in parts)
+            for k in ("render", "depth", "alpha", "tidx"):
+                got = torch.cat([p[k] for p in parts])[:128]
+                assert torch.equal(got, whole[k]), (n_tile, k)
+
+
+def test_band_backward_on_card(cuda_device, monkeypatch):
+    """An L1 loss summed over 3 bands' renders, backpropagated band by
+    band on the card, against the whole frame's: the per-Gaussian feature
+    gradients within 64 * 2^-24 * the largest |cumsum| of the streams'
+    sorted cotangents (the same terms, reduced per band, then summed);
+    the backward kernel on a band stream equal to its plain version bit
+    for bit (sums="kernel")."""
+    from gaussianprediction_tpu_torch.models.gaussians import get_shs
+    from gaussianprediction_tpu_torch.ops import instance_stream as IS
+    from gaussianprediction_tpu_torch.ops.rasterize import render
+    from gaussianprediction_tpu_torch.train.step import deform_for_stage
+
+    cfg, state, _, cam, gt, t = _binning_model(cuda_device)
+    seen = []
+    orig_bwd = IS.build_instances_bwd
+
+    def spy(gid_row, kept, d_inst, *a, **k):
+        out = orig_bwd(gid_row, kept, d_inst, *a, **k)
+        srt = d_inst[:10].index_select(1, torch.sort(
+            gid_row.to(torch.int32), stable=True).indices)
+        seen.append((out, float(torch.cumsum(srt, 1).abs().max())))
+        return out
+
+    monkeypatch.setattr(IS, "build_instances_bwd", spy)
+    blend_in = []
+    orig_blend = TR.rasterize_binned_bwd
+    monkeypatch.setattr(TR, "rasterize_binned_bwd", lambda *a, **k: (
+        blend_in.append(a) or orig_blend(*a, **k)))
+    with torch.no_grad():
+        d = deform_for_stage(state.params, cfg, state, t, 2000, None, 1)
+    base = (d.xyz, d.scaling, d.rotation, d.opacity, get_shs(state.params))
+    denom = 128 * 128 * 3.0
+    for bands in ([None], _bands_of(128, 3)):
+        leaves = [x.detach().clone().requires_grad_(True) for x in base]
+        for b in bands:
+            out = render(*leaves, cam, 128, 128,
+                         torch.zeros(3, device=cuda_device),
+                         alive=state.alive, capacity_multiplier=24,
+                         tile_band=b)
+            y0 = 0 if b is None else b[0] * 16
+            rows = min(128, y0 + out["render"].shape[0]) - y0
+            ((out["render"][:rows] - gt[y0:y0 + rows]).abs().sum()
+             / denom).backward()
+    whole = seen[0][0]
+    banded = sum(o for o, _ in seen[1:])
+    tol = 64 * 2.0 ** -24 * sum(m for _, m in seen)
+    assert float((banded - whole).abs().max()) <= tol
+    a = orig_blend(*blend_in[2])
+    ref = TR.rasterize_binned_bwd_plain(*blend_in[2], sums="kernel")
+    assert torch.equal(_bits(a), _bits(ref))
+
+
+@pytest.fixture
+def one_rank_group(cuda_device):
+    """A one-rank nccl group through maybe_initialize_distributed
+    (GPT_DIST=1, env://), destroyed after the test."""
+    import os
+
+    import torch.distributed as dist
+
+    from gaussianprediction_tpu_torch.parallel import distributed as PD
+    from torch_port_util import free_port
+
+    env = {"GPT_DIST": "1", "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        assert PD.maybe_initialize_distributed(verbose=False) is False
+        assert dist.get_backend() == "nccl"
+        yield dist
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def test_one_rank_nccl_step_equals_single_step(cuda_device, one_rank_group):
+    """The sharded step on a 1 x 1 nccl mesh equals make_train_step on the
+    same draws bit for bit: loss, gradients, parameters, moments and
+    statistics."""
+    from gaussianprediction_tpu_torch.parallel.mesh import make_mesh
+    from gaussianprediction_tpu_torch.parallel.shard import (
+        make_sharded_train_step,
+    )
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.step import make_train_step
+
+    cfg, state, opt, cam, gt, t = _binning_model(cuda_device)
+    bg = torch.zeros(3, device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    noise = torch.randn(state.params["xyz"].shape, generator=g,
+                        device=cuda_device)
+    tn = torch.randn((), generator=g, device=cuda_device)
+    single = make_train_step(cfg, 1, 128, 128, 1.0, 3, 50, bg)
+    step, _ = make_sharded_train_step(cfg, 1, 128, 128, 1.0, 3, 50, bg,
+                                      make_mesh(1, 1), capacity_multiplier=24)
+    s1, o1, m1 = single(state, opt, cam, gt, t, 2000, noise=noise,
+                        time_noise=tn)
+    s2, o2, m2 = step(state, opt, [cam], [gt], [t], 2000, noise=noise,
+                      time_noises=[tn])
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(O.tree_leaves([m1["grads"], s1.params, o1["m"],
+                                   o1["v"]]),
+                    O.tree_leaves([m2["grads"], s2.params, o2["m"],
+                                   o2["v"]])):
+        assert torch.equal(_bits(a), _bits(b))
+    for k in ("xyz_gradient_accum", "denom", "max_radii2D"):
+        assert torch.equal(getattr(s1, k), getattr(s2, k)), k
+
+
+def test_two_gloo_ranks_on_card(cuda_device, tmp_path):
+    """Two ranks on cuda:0 over gloo (nccl refuses two ranks on one card),
+    where gloo's all-gather and all-reduces take CUDA tensors (the probe
+    of parallel/distributed.py; else skipped): the sharded step on a 1 x 2
+    mesh against make_train_step in this process, as the JAX package holds
+    its sharded step to its single step (loss to 1e-4 relative, parameters
+    and xyz_gradient_accum to 1e-5), both ranks' states bit-identical."""
+    from gaussianprediction_tpu_torch.convert import flatten
+    from gaussianprediction_tpu_torch.parallel.distributed import (
+        probe_gloo_cuda,
+    )
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.step import make_train_step
+    from torch_port_util import load_ranks, spawn
+
+    ok, said = probe_gloo_cuda()
+    if not ok:
+        pytest.skip("gloo takes no CUDA tensors here:\n" + said[-500:])
+    cfg, state, opt, cam, gt, t = _binning_model(torch.device("cpu"))
+    # second moments > 0: Adam's first step from v = 0 is a ±lr sign step,
+    # which roundoff flips on gradients near 0
+    gen = torch.Generator().manual_seed(6)
+    opt["v"] = O.tree_map(lambda x: (0.2 * (x.abs().mean() + 1e-3)) ** 2
+                          * (0.5 + torch.rand(x.shape, generator=gen)),
+                          state.params)
+    opt["step"] = torch.tensor(4, dtype=torch.int32)
+    arrays = {f"params/{k}": v for k, v in flatten(state.params).items()}
+    arrays.update({f"opt/{k}": v for k, v in flatten(opt).items()})
+    arrays["alive"] = state.alive.numpy()
+    arrays["gts"] = gt.numpy()[None]
+    np.savez(tmp_path / "inputs.npz", **arrays)
+    case = dict(inputs=str(tmp_path / "inputs.npz"), n_data=1, n_tile=2,
+                stage=1, iteration=2000, angles=[0.9], times=[0.3],
+                bg=[0.0, 0.0, 0.0], extent=1.0, sh_degree=3, total_frame=50,
+                capacity_multiplier=24.0, preset="dnerf",
+                cfg={"train": {"xyz_noise_iteration": 1,
+                               "time_noise_iteration": 1}})
+    spawn({"job": "steps", "width": 128, "height": 128, "cases": [case],
+           "device": "cuda", "backend": "gloo"}, tmp_path, 2, timeout=300,
+          one_gpu=True)
+    ranks = load_ranks(tmp_path, 2)
+    cfg.train.xyz_noise_iteration = cfg.train.time_noise_iteration = 1
+    dev = cuda_device
+    state, opt = state.to(dev), O.tree_map(lambda x: x.to(dev), opt)
+    s1, _, m1 = make_train_step(cfg, 1, 128, 128, 1.0, 3, 50,
+                                torch.zeros(3, device=dev))(
+        state, opt, orbit_camera(0.9, width=128, height=128)
+        .to_device_dict(dev), gt.to(dev), t.to(dev), 2000)
+    got = ranks[0]
+    assert int(got["case0/n_dropped"]) == 0
+    assert float(got["case0/loss"]) == pytest.approx(float(m1["loss"]),
+                                                     rel=1e-4)
+    for k, v in flatten(s1.params).items():
+        np.testing.assert_allclose(got[f"case0/params/{k}"], v, rtol=0,
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["case0/xyz_gradient_accum"],
+                               s1.xyz_gradient_accum.cpu().numpy(), rtol=0,
+                               atol=1e-5)
+    for k, v in got.items():
+        assert np.array_equal(ranks[1][k], v, equal_nan=True), k

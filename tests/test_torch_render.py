@@ -224,7 +224,8 @@ def test_convert_loads_jax_checkpoint(model, tmp_path):
 
 
 def test_unported_paths_raise():
-    """tile_band raises; fast_binning=False, once refused, renders."""
+    """tile_band and fast_binning=False, once refused, render: the top
+    band equals the top rows of the whole render."""
     g = {k: torch.zeros(4, d) for k, d in (("xyz", 3), ("s", 3), ("q", 4))}
     g["s"] += 0.05
     g["q"][:, 0] = 1.0
@@ -232,8 +233,9 @@ def test_unported_paths_raise():
     cam = torbit(0.1, width=32, height=32).to_device_dict("cpu")
     args = (g["xyz"], g["s"], g["q"], torch.full((4,), 0.8), None, cam, 32,
             32, torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TR.render(*args, colors_precomp=g["xyz"] + 0.5, tile_band=(0, 1))
+    whole = TR.render(*args, colors_precomp=g["xyz"] + 0.5)
+    band = TR.render(*args, colors_precomp=g["xyz"] + 0.5, tile_band=(0, 1))
+    assert torch.equal(band["render"], whole["render"][:16])
     # the CHUNK-aligned segments need room: 128 slots a touched tile
     outs = [TR.render(*args, colors_precomp=g["xyz"] + 0.5,
                       fast_binning=fb, capacity_multiplier=512)

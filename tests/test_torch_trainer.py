@@ -29,8 +29,9 @@ package's, on the `test` preset at 32x32.
   twin of tests/test_training.py::test_full_stage_progression), with its
   history, TensorBoard, PLY and checkpoint files.
 - The TensorBoard writer writes the JAX writer's bytes.
-- The three unported Trainer paths raise NotImplementedError
-  (steps_per_call > 1, n_devices > 1, profile_steps > 0).
+- The two unported Trainer paths raise NotImplementedError
+  (steps_per_call > 1, profile_steps > 0); n_devices > 1 without a
+  process group raises naming torchrun.
 """
 import copy
 import os
@@ -401,10 +402,13 @@ def test_tb_writer_writes_the_jax_bytes(tmp_path, monkeypatch):
 
 def test_unported_paths_raise(jinfo):
     info = _port_info(jinfo)
-    for kw in ({"steps_per_call": 4}, {"n_devices": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(get_preset("test"), Scene(info), device=CPU,
-                    quiet=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(get_preset("test"), Scene(info), device=CPU, quiet=True,
+                steps_per_call=4)
+    # several devices are ported; they need torchrun's process group
+    with pytest.raises(RuntimeError, match="torchrun --standalone"):
+        Trainer(get_preset("test"), Scene(info), device=CPU, quiet=True,
+                n_devices=2)
     cfg = get_preset("test")
     cfg.train.profile_steps = 3
     tr = Trainer(cfg, Scene(info), device=CPU, quiet=True)

@@ -6,11 +6,19 @@ tests/conftest.py sets up), the port on device="cpu".
 """
 from __future__ import annotations
 
+import json
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 CPU = torch.device("cpu")
+CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "torch_dist_child.py")
 
 
 @pytest.fixture
@@ -282,3 +290,65 @@ def lpips_golden_weights(path):
     b = np.clip(a + 0.15 * np.sin(np.arange(64 * 80 * 3).reshape(64, 80, 3)
                                   * 0.37), 0, 1).astype(np.float32)
     return a, b
+
+
+# ---- spawned torch.distributed ranks (tests/torch_dist_child.py) -------
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn(spec, folder, world: int, timeout: float = 240.0, argv=None,
+          extra_env=None, one_gpu: bool = False):
+    """Run `world` rank processes (tests/torch_dist_child.py on `spec`, or
+    `argv`) and return what they printed; a child that fails or outlives
+    `timeout` fails the test (every child is killed first). one_gpu: every
+    rank's LOCAL_RANK is 0 (several ranks on one card)."""
+    folder = str(folder)
+    os.makedirs(folder, exist_ok=True)
+    if argv is None:
+        path = os.path.join(folder, "spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        argv = [[sys.executable, CHILD, path]] * world
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ)
+        env.pop("GPT_DIST", None)
+        env.update({"RANK": str(rank),
+                    "LOCAL_RANK": "0" if one_gpu else str(rank),
+                    "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+                    "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"})
+        env.update(extra_env or {})
+        procs.append(subprocess.Popen(
+            argv[rank], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=folder))
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail(f"a rank outlived its {timeout} s timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {rank} failed:\n{out[-4000:]}"
+    return [out for _, out in outs]
+
+
+def load_ranks(folder, world: int):
+    res = []
+    for r in range(world):
+        with np.load(os.path.join(str(folder), f"rank{r}.npz")) as f:
+            res.append({k: f[k] for k in f.files})
+    return res
