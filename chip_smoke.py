@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stage-1 eval render, its training steps of
-every stage (the classic binning path, the ellipse cull and gradient
-accumulation too), its Trainer loop, motion extrapolation and its four
-CLIs on a D-NeRF and a HyperNeRF scene on disk, on one NVIDIA H100.
+every stage (the classic binning path, the ellipse cull, gradient
+accumulation and several iterations a call too), its Trainer loop,
+motion extrapolation and its four CLIs on a D-NeRF and a HyperNeRF scene
+on disk, on one NVIDIA H100.
 
 Phases (each prints one flushed line with its wall time; any failure ends
 the run with a non-zero exit and no result line):
@@ -217,7 +218,20 @@ the run with a non-zero exit and no result line):
      iterations of phase 18's scene against the single-device Trainer, the
      ranks' states bit-identical (sharded_phases gives the bounds); the
      launches added to the kernels line's rows;
- 23. a `kernels` JSON line, the nvidia-smi line, and as the last line
+ 23. several iterations a call ("multi", multi_phases):
+     make_train_step_multi (K = 4) from the training cell's stage-1 state
+     across densify_until_iter and its stage-2 state at the transition,
+     classic and under GPT_BLEND_SMT=4, equal to 4 single steps bit for
+     bit, and again under torch.cuda.set_sync_debug_mode("error") (the
+     detector first shown to catch a host-to-device copy); ms an
+     iteration of the multi call and of the single calls with their
+     device-busy shares; Trainer(steps_per_call=4) against
+     steps_per_call=1 on phase 18's scene over 88 iterations (densify
+     events, the 1 -> 2 transition): state digests equal, and the chunked
+     run's profiler window (cfg.train.profile_*) written as a Chrome
+     trace that holds the hand-written kernels, its device-busy share
+     printed; the launches added to the kernels line's rows;
+ 24. a `kernels` JSON line, the nvidia-smi line, and as the last line
      {"ok": true, "device": {...}}.
 
 Usage:
@@ -2025,7 +2039,8 @@ def run_trainer(cfg, info, dev, seed: int, u: int, rehearse: bool):
     # the checks
     s2, s3i = cfg.train.second_stage_iteration, cfg.train.third_stage_iteration
     fails = []
-    if tr.iteration != 7 * u or sorted(tr._steps) != [0, 1, 2, 3]:
+    if tr.iteration != 7 * u or \
+            sorted(s for s, _ in tr._multi_steps) != [0, 1, 2, 3]:
         fails.append("not every stage ran")
     if [it for it, _ in ev["transition"] if it == s2 + 1] != [s2 + 1] or \
             dict(ev["transition"]).get(s2 + 1) != cfg.model.max_points:
@@ -3028,13 +3043,16 @@ def classic_phases(cfg, dev, rstate, iteration, views, renders, ctx,
         g = gen()
         total = None
         for j in range(3):
-            tj = S.time_with_noise(acfg, times[j], it1 + j, g, 1, 50)
+            tj = S.time_with_noise(acfg, times[j], g, 50, S.time_noise_anneal(
+                acfg, it1 + j, 1).to(dev))
             gj = loss_and_grads(state, cams[j], gts[j], tj, it1 + j, g, None,
                                 None)[1]
             total = gj if total is None else O.tree_map(torch.add, total, gj)
         with torch.no_grad():
             manual, _ = O.adam_step(state.params, total, opt, acfg, 1,
-                                    ctx["extent"], it1 + 2)
+                                    S.row_lrs(acfg, 1, S.step_scalars(
+                                        acfg, 1, ctx["extent"],
+                                        [it1 + 2])[0].to(dev)))
         bits, worst = tree_diff(x[0].params, manual)
         ms_batch = step_ms(batched, bargs(), dev, 3)
         log(f"batched step: loss {float(x[2]['loss']):.6f} (3 renders); "
@@ -3160,10 +3178,10 @@ def repeat_identical(tr, dev, batch: int) -> bool:
                 time_noises=tns))
         else:
             cam_d, t, gt = views[0]
-            outs.append(tr._step_fn(3)(
-                tr.state, tr.opt_state, cam_d, gt, t, it,
-                active_deg=tr.active_sh_degree, noise=noises[0],
-                time_noise=None if tns is None else tns[0]))
+            outs.append(tr._multi_step_fn(3, 1)(
+                tr.state, tr.opt_state, [cam_d], [gt], [t], it,
+                active_deg=tr.active_sh_degree, noises=noises[:1],
+                time_noises=None if tns is None else tns[:1]))
     sync(dev)
     (s1, o1, m1), (s2, o2, m2) = outs
     checked(outs[0], "a repeated stage-3 step")
@@ -4083,6 +4101,239 @@ def sharded_phases(cfg, dev, rstate, iteration, views, ctx, info, seed: int,
     return launches
 
 
+MULTI_K = 4          # phase 23's iterations a call
+
+
+def multi_runs_equal(a, b) -> bool:
+    """Two (state, opt_state, metrics) bit for bit: params, Adam moments
+    and step, the statistics, the masks and the metrics."""
+    from gaussianprediction_tpu_torch.models.gaussians import STATS
+
+    (sa, oa, ma), (sb, ob, mb) = a, b
+    masks = [(sa.alive, sb.alive), (sa.kpt_alive, sb.kpt_alive)]
+    return tree_diff([sa.params, oa["m"], oa["v"], ma["grads"]],
+                     [sb.params, ob["m"], ob["v"], mb["grads"]])[0] and \
+        torch.equal(oa["step"], ob["step"]) and \
+        all(x is y or torch.equal(x, y) for x, y in masks) and \
+        all(bits_equal(getattr(sa, k), getattr(sb, k)) for k in STATS) and \
+        all(bits_equal(ma[k], mb[k])
+            for k in ("loss", "l1", "psnr", "n_dropped"))
+
+
+def check_sync_detector(dev) -> None:
+    """Raise unless sync-debug 'error' refuses what the step's path once
+    did on every step: a 0-d tensor made from a host scalar on the card
+    and a copy of a host tensor there (both block the host until the card
+    has run all it was given)."""
+    for what, fn in (("torch.tensor(x, device=cuda)",
+                      lambda: torch.tensor(0.9, device=dev)),
+                     ("a pageable host-to-device copy",
+                      lambda: torch.ones(3).to(dev))):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            caught = False
+        except RuntimeError:
+            caught = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not caught:
+            raise AssertionError(f"sync-debug 'error' let {what} pass")
+
+
+def trace_busy(path: str):
+    """(kernel names, device-busy share) of a torch.profiler Chrome trace:
+    the kernels' summed durations over the span of all timed events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    busy = sum(float(e.get("dur", 0)) for e in kern)
+    return {e["name"] for e in kern}, busy / max(t1 - t0, 1e-9), \
+        (t1 - t0) / 1e3
+
+
+def multi_phases(dev, ctx, info, seed: int, rehearse: bool, reps: int):
+    """Phase 23 ("multi"): several iterations a call.
+
+    (1) make_train_step_multi(K = 4) from the training cell's stage-1
+    state (iterations densify_until_iter - 2 .. + 1, so the statistics'
+    flag turns off inside the call) and its stage-2 hash-grid state at the
+    transition, under the classic blend and under GPT_BLEND_SMT=4, against
+    4 single steps on the same draws: params, Adam moments and step, the
+    statistics and the last metrics bit for bit; then the multi call once
+    more under torch.cuda.set_sync_debug_mode("error") (after the first
+    call: a host synchronisation inside it raises), equal again; the ms
+    an iteration of the multi call and of the 4 single calls (CUDA
+    events, median of 3) and each one's device-busy share in a profiler
+    window, printed, not claimed.
+    (2) Trainer(steps_per_call=4) against Trainer(steps_per_call=1) on
+    phase 18's scene over 88 iterations of trainer_schedule at u = 20
+    (densify at 40, 60 and 80, the 1 -> 2 transition at 81):
+    state_digest equal. The chunked run traces iterations 41-44 (one
+    chunk) through cfg.train.profile_*: the Chrome trace on disk, holding
+    the step's hand-written kernels by their __global__ names, its
+    device-busy share printed.
+
+    Returns the launches of the multi calls and the two Trainers (counts
+    set to 0 before each)."""
+    import glob
+    import shutil
+    import tempfile
+
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.data.scene import Scene
+    from gaussianprediction_tpu_torch.train import loop as L
+    from gaussianprediction_tpu_torch.train.step import (
+        make_train_step, make_train_step_multi,
+    )
+
+    K = MULTI_K
+    n = 1 if rehearse else 3
+    launches = {}
+
+    def add(got):
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+
+    cam, gt, t, bg_t = ctx["cam"], ctx["gt"], ctx["t"], ctx["bg_t"]
+    extent, size = ctx["extent"], ctx["gt"].shape[0]
+    sh = ctx["cfg"].model.sh_degree
+    s2_it = ctx["s2_cfg"].train.second_stage_iteration + 1
+    cases = ((1, ctx["cfg"], ctx["state"], ctx["opt"],
+              ctx["cfg"].opt.densify_until_iter - 2),
+             (2, ctx["s2_cfg"], ctx["s2_trans"], ctx["s2_opt"], s2_it))
+    # the rehearsal leaves out SMT 4 (its plain walks take minutes on the
+    # CPU; phase 12 rehearses them) and the profiler windows
+    blends = (("classic", {}),) + (() if rehearse else (("smt 4", SMT_ENV),))
+    for blend, env in blends:
+        for stage, scfg, st, op, it0 in cases:
+            with Phase(f"multi: K = {K} at stage {stage}, {blend}"), \
+                    variant_env(env):
+                g = torch.Generator(dev).manual_seed(seed + 23)
+                rows = st.params["xyz" if stage == 1 else "super_xyz"]
+                noises = [torch.randn(rows.shape, generator=g, device=dev)
+                          for _ in range(K)]
+                tnoises = [torch.randn((), generator=g, device=dev)
+                           for _ in range(K)] \
+                    if scfg.train.use_time_decay else [None] * K
+                single = make_train_step(scfg, stage, size, size, extent,
+                                         sh, 50, bg_t)
+                multi = make_train_step_multi(scfg, stage, size, size,
+                                              extent, sh, 50, bg_t, K)
+
+                def singles():
+                    s, o = st, op
+                    for i in range(K):
+                        s, o, m = single(s, o, cam, gt, t, it0 + i,
+                                         noise=noises[i],
+                                         time_noise=tnoises[i])
+                    return s, o, m
+
+                def call():
+                    return multi(st, op, [cam] * K, [gt] * K, [t] * K, it0,
+                                 noises=noises, time_noises=tnoises)
+
+                ref = checked(singles(), f"stage-{stage} single steps")
+                got, n1 = counted_launches(
+                    lambda: checked(call(), f"stage-{stage} multi step"),
+                    dev)
+                add(n1)
+                if dev.type == "cuda":
+                    sync(dev)
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        again = call()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    check_sync_detector(dev)
+                else:
+                    again = call()
+                sync(dev)
+                same = multi_runs_equal(got, ref)
+                twice = multi_runs_equal(again, ref)
+                ms_m = [x / K for x in step_ms(call, (), dev, n)]
+                ms_s = [x / K for x in step_ms(singles, (), dev, n)]
+                log(f"stage {stage}, {blend}: iterations {it0}-{it0 + K - 1}"
+                    f", loss {float(got[2]['loss']):.6f}; the multi step "
+                    f"equal to {K} single steps bit for bit {same}; under "
+                    f"sync-debug 'error' (no host synchronisation inside "
+                    f"the call) equal again {twice}; ms an iteration: multi "
+                    f"{[round(x, 3) for x in ms_m]} (median "
+                    f"{float(np.median(ms_m)):.3f}), singles "
+                    f"{[round(x, 3) for x in ms_s]} (median "
+                    f"{float(np.median(ms_s)):.3f}); launches {n1}")
+                if not rehearse:
+                    profile(call, dev, f"the multi call (K = {K}), stage "
+                            f"{stage}, {blend}", reps=1, top=0)
+                    profile(singles, dev, f"{K} single calls, stage "
+                            f"{stage}, {blend}", reps=1, top=0)
+                want = ("stack", "expand", "interleave") + (
+                    ("blend_fwd_smt", "blend_bwd_smt") if env
+                    else ("blend_fwd", "blend_bwd")) + (
+                    ("scatter_add_sorted",) if stage == 2 else ())
+                missing = [k for k in want if n1.get(k, 0) < K]
+                if not (same and twice) or (not rehearse and missing):
+                    raise AssertionError(
+                        f"the stage-{stage} multi step ({blend}): bit for "
+                        f"bit {same}, again {twice}, not launched {missing}")
+
+    tmp = tempfile.mkdtemp(prefix="gpt_multi_")
+    try:
+        with Phase(f"multi: Trainer(steps_per_call={K}) against "
+                   f"steps_per_call=1"):
+            chunks, digests = [], []
+
+            class Chunked(L.Trainer):
+                def train_chunk(self, a, b):
+                    if b > a:       # train_one is a chunk of one
+                        chunks.append((a, b))
+                    return super().train_chunk(a, b)
+
+            for k in (1, K):
+                cfg = get_preset("dnerf")
+                if rehearse:
+                    cfg.model.max_gaussian_size = cfg.model.capacity = 4_096
+                trainer_schedule(cfg, 20, os.path.join(tmp, f"k{k}"))
+                cfg.train.test_iterations = ()
+                cfg.train.checkpoint_iterations = ()
+                cfg.train.save_iterations = ()
+                if k > 1:
+                    cfg.train.profile_from, cfg.train.profile_steps = 41, K
+                tr = Chunked(cfg, Scene(info, seed=seed), seed=seed,
+                             device=dev, quiet=True, steps_per_call=k)
+                t0 = time.perf_counter()
+                _, nk = counted_launches(lambda: tr.run(iterations=88), dev)
+                add(nk)
+                digests.append(state_digest(tr.state, tr.opt_state))
+                log(f"steps_per_call={k}: 88 iterations in "
+                    f"{time.perf_counter() - t0:.2f} s, {int(tr.state.n_alive())}"
+                    f" Gaussians, {int(tr.state.n_kpts())} keypoints, "
+                    f"digest {digests[-1][:16]}, launches {nk}")
+            files = glob.glob(os.path.join(tmp, f"k{K}", "profile", "*.json"))
+            log(f"chunks {chunks}; digests equal {digests[0] == digests[1]};"
+                f" trace files {[os.path.basename(f) for f in files]}")
+            if digests[0] != digests[1] or not chunks or len(files) != 1:
+                raise AssertionError("the chunked Trainer")
+            names, share, span = trace_busy(files[0])
+            want = [DEVICE_NAMES[k][0] for k in FWD_KERNELS + ("blend_bwd",)]
+            missing = [w for w in want if not any(w in x for x in names)]
+            log(f"trace {os.path.basename(files[0])} "
+                f"({os.path.getsize(files[0]) / 2**20:.1f} MiB): "
+                f"{len(names)} kernel names; device-busy share "
+                f"{share:.4f} of {span:.3f} ms; the hand-written kernels "
+                f"{want} in it: missing {missing}")
+            if not rehearse and missing:
+                raise AssertionError(f"kernels missing from the trace: "
+                                     f"{missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4251,6 +4502,11 @@ def main() -> int:
                                args.seed, args.rehearse, reps)
     log(f"sharded phase: launches {plaunches}")
     for k, v in plaunches.items():
+        if k in launches:
+            launches[k] += v
+    mlaunches = multi_phases(dev, ctx, info, args.seed, args.rehearse, reps)
+    log(f"multi phase: launches {mlaunches}")
+    for k, v in mlaunches.items():
         if k in launches:
             launches[k] += v
 

@@ -10,9 +10,10 @@ Blender transforms_train.json, HyperNeRF dataset.json). Per-scene presets
 reproduce the reference's training scripts; any flag overrides the preset.
 The flags, their defaults and the resolved config are train.py's: the same
 argv gives the same cfg.json, written to the model dir. Runs on the card
-(GPT_FORCE_CPU=1: on the CPU). Flags whose path the port lacks raise
-NotImplementedError naming their ROADMAP.md item: --steps_per_call > 1
-and --profile_steps > 0.
+(GPT_FORCE_CPU=1: on the CPU). --steps_per_call K trains K iterations a
+device call where no host event intervenes (the same result as K = 1);
+--profile_steps N [--profile_from I] writes a torch.profiler Chrome trace
+of N iterations into <model_dir>/profile.
 
 On several GPUs, one process a GPU (parallel/distributed.py):
   torchrun --standalone --nproc_per_node N \
@@ -78,11 +79,10 @@ def build_parser():
                         "(default: --n_devices; read only with --n_devices "
                         "> 1)")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help=">1: several iterations per device call (not "
-                        "ported: ROADMAP.md Queue 1 item 1)")
+                   help=">1: several iterations per device call")
     p.add_argument("--profile_steps", type=int, default=None,
-                   help="trace this many steps into <model_path>/profile "
-                        "(not ported: ROADMAP.md Queue 1 item 1)")
+                   help="trace this many steps with torch.profiler into "
+                        "<model_path>/profile")
     p.add_argument("--profile_from", type=int, default=None,
                    help="first iteration of the profiler trace window")
     return p
@@ -127,26 +127,10 @@ def resolve_config(args):
     return cfg
 
 
-def refuse_unported(cfg, args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for a setting
-    whose path the port lacks."""
-    refused = [
-        (args.steps_per_call > 1,
-         "--steps_per_call > 1 (several steps per device call)", 1),
-        (cfg.train.profile_steps > 0, "--profile_steps (the profiler hook)",
-         1),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
-
-
 def main(argv=None):
     """Train from argv (None: sys.argv); returns the Trainer."""
     args = build_parser().parse_args(argv)
     cfg = resolve_config(args)
-    refuse_unported(cfg, args)
     from gaussianprediction_tpu_torch.parallel.distributed import (
         LAUNCH, maybe_initialize_distributed, opted_in, rank_device,
     )
@@ -182,7 +166,8 @@ def main(argv=None):
     )
     try:
         trainer = Trainer(cfg, scene, device=dev, n_devices=args.n_devices,
-                          n_data=args.n_data or args.n_devices)
+                          n_data=args.n_data or args.n_devices,
+                          steps_per_call=args.steps_per_call)
         if args.start_checkpoint:
             trainer.load_checkpoint(args.start_checkpoint)
             say(f"resumed from {args.start_checkpoint} @ "

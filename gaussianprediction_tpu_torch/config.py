@@ -149,8 +149,9 @@ class TrainConfig:
     test_iterations: Tuple[int, ...] = (7000, 30000)
     save_iterations: Tuple[int, ...] = (7000, 30000)
     checkpoint_iterations: Tuple[int, ...] = ()
-    # jax.profiler trace window (SURVEY §5.1): trace profile_steps device
-    # steps starting at iteration profile_from into <model_path>/profile
+    # the profiler window (train/loop.py:Trainer.run): trace profile_steps
+    # iterations from the first one >= profile_from with torch.profiler
+    # into a Chrome trace under <model_path>/profile
     profile_from: int = 20
     profile_steps: int = 0
 

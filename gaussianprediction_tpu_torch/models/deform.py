@@ -189,26 +189,45 @@ def deform_warmup(params, cfg: Config) -> DeformOut:
     )
 
 
+def xyz_noise_sigma(cfg: Config, iteration: int, stage: int):
+    """The xyz jitter's sigma at a global iteration, a 0-d f32 tensor: 0.1
+    annealed linearly to 0 at xyz_noise_iteration, counted from 0 for the
+    Gaussians of stage 1 and from second_stage_iteration for the
+    keypoints of stages 2/3."""
+    if stage >= 2:
+        iteration = iteration - cfg.train.second_stage_iteration
+    return linear_anneal(iteration, 0.1, cfg.train.xyz_noise_iteration)
+
+
+def _jitter(x, iteration: int, cfg: Config, stage: int, generator, noise,
+            sigma):
+    """x + sigma * noise. With sigma None, sigma is xyz_noise_sigma on the
+    host, and `noise` (N(0,1) of x's shape, before the anneal) is drawn
+    from `generator` when None and sigma != 0; past the anneal nothing is
+    drawn. A given sigma (a 0-d tensor on x's device, the training steps'
+    per-iteration table) applies the given noise, and None means no
+    jitter."""
+    if sigma is None:
+        sigma = float(xyz_noise_sigma(cfg, iteration, stage))
+        if sigma != 0.0 and noise is None:
+            gdev = generator.device if generator is not None else x.device
+            noise = torch.randn(x.shape, generator=generator,
+                                device=gdev).to(x.device)
+    return x if noise is None else x + sigma * noise
+
+
 def deform_stage1(params, cfg: Config, state: GaussianState, t, iteration,
                   generator: Optional[torch.Generator] = None,
-                  noise=None) -> DeformOut:
+                  noise=None, sigma=None) -> DeformOut:
     """Stage 1: per-Gaussian deformation.
 
-    The xyz jitter sigma anneals to 0 at xyz_noise_iteration; past it no
-    noise is drawn. Otherwise `noise` (N(0,1) [C, 3], before the anneal)
-    is taken as given or drawn from `generator`: the draws differ from
+    The xyz jitter (_jitter): sigma anneals to 0 at xyz_noise_iteration,
+    `noise` is N(0,1) [C, 3] before the anneal: the draws differ from
     jax.random's, so tests that compare with the JAX package pass the
     same pre-drawn noise to both."""
     t_pe = time_encode(cfg, t)
-    sigma = float(linear_anneal(iteration, 0.1, cfg.train.xyz_noise_iteration))
-    xyz_in = params["xyz"].detach()
-    if sigma != 0.0 or noise is not None:
-        if noise is None:
-            gdev = generator.device if generator is not None \
-                else xyz_in.device
-            noise = torch.randn(xyz_in.shape, generator=generator,
-                                device=gdev).to(xyz_in.device)
-        xyz_in = xyz_in + sigma * noise
+    xyz_in = _jitter(params["xyz"].detach(), iteration, cfg, 1, generator,
+                     noise, sigma)
     xyz_embed = xyz_encode(cfg, xyz_in)
     delta_xyz, delta_q, _ = motion_delta(
         params, cfg, xyz_embed, params["motion_feature"], t_pe
@@ -225,24 +244,14 @@ def deform_stage1(params, cfg: Config, state: GaussianState, t, iteration,
 
 
 def keypoint_motion(params, cfg: Config, state: GaussianState, t, iteration,
-                    generator: Optional[torch.Generator] = None, noise=None):
+                    generator: Optional[torch.Generator] = None, noise=None,
+                    sigma=None):
     """The deform MLP on the keypoints (their positions jittered by an
-    annealed N(0, 1) draw): (Δxyz, Δq, t's positional encoding), Δxyz zero
-    on dead keypoint rows. `noise` ([Ck, 3], N(0,1) before the anneal) is
-    taken as given or drawn from `generator`; past the anneal no noise is
-    drawn."""
+    annealed N(0, 1) draw, _jitter; `noise` [Ck, 3]): (Δxyz, Δq, t's
+    positional encoding), Δxyz zero on dead keypoint rows."""
     t_pe = time_encode(cfg, t)
-    sigma = float(linear_anneal(
-        iteration - cfg.train.second_stage_iteration, 0.1,
-        cfg.train.xyz_noise_iteration))
-    kpt_in = params["super_xyz"]
-    if sigma != 0.0 or noise is not None:
-        if noise is None:
-            gdev = generator.device if generator is not None \
-                else kpt_in.device
-            noise = torch.randn(kpt_in.shape, generator=generator,
-                                device=gdev).to(kpt_in.device)
-        kpt_in = kpt_in + sigma * noise
+    kpt_in = _jitter(params["super_xyz"], iteration, cfg, 2, generator,
+                     noise, sigma)
     xyz_embed = xyz_encode(cfg, kpt_in)
     kpt_dxyz, kpt_dq, _ = motion_delta(
         params, cfg, xyz_embed, params["super_feature"], t_pe
@@ -256,13 +265,14 @@ def keypoint_motion(params, cfg: Config, state: GaussianState, t, iteration,
 
 def deform_stage23(params, cfg: Config, state: GaussianState, t, iteration,
                    generator: Optional[torch.Generator] = None,
-                   noise=None) -> DeformOut:
+                   noise=None, sigma=None) -> DeformOut:
     """Stages 2/3: the keypoints' motion (keypoint_motion), blended onto
     each Gaussian by its K nearest keypoints' softmax weights. Dead
     keypoint rows blend as zero motion and the identity rotation."""
     nn_idx, w_xyz, w_r = blend_weights(params, cfg, state)
     kpt_dxyz, kpt_dq, t_pe = keypoint_motion(params, cfg, state, t,
-                                             iteration, generator, noise)
+                                             iteration, generator, noise,
+                                             sigma)
     ident = torch.zeros_like(kpt_dq)
     ident[:, 0] = 1.0
     kpt_dq_safe = torch.where(state.kpt_alive[:, None], kpt_dq, ident)

@@ -15,6 +15,8 @@ otherwise (eval, under torch.no_grad) the kernels are called directly.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gaussianprediction_tpu_torch.ops import (
@@ -33,6 +35,14 @@ def _assemble(per_tile, grid_x, grid_y, height, width):
     img = per_tile.reshape(grid_y, grid_x, 16, 16, C)
     img = img.permute(0, 2, 1, 3, 4).reshape(grid_y * 16, grid_x * 16, C)
     return img[:height, :width]
+
+
+@functools.lru_cache(maxsize=None)
+def _ndc_half_extent(width: int, height: int, device: torch.device):
+    """[2] f32 (width / 2, height / 2), made once per (size, device): a
+    copy from the host on every step would block the host."""
+    return torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32,
+                        device=device)
 
 
 def binned_instances(feat, gauss_id):
@@ -147,8 +157,8 @@ def render(xyz, scaling, rotation, opacity, shs, cam: dict, width: int,
     full_proj = proj
     mean2d = proj.mean2d
     if means2d_dummy is not None:
-        mean2d = mean2d + means2d_dummy * torch.tensor(
-            [width * 0.5, height * 0.5], dtype=torch.float32, device=dev)
+        mean2d = mean2d + means2d_dummy * _ndc_half_extent(width, height,
+                                                          dev)
     band_height = height
     if tile_band is not None:
         ty0, n_band = int(tile_band[0]), int(tile_band[1])

@@ -57,12 +57,12 @@ from gaussianprediction_tpu_torch.ops.projection import TILE
 from gaussianprediction_tpu_torch.parallel.mesh import Mesh
 from gaussianprediction_tpu_torch.train import optimizer as opt_mod
 from gaussianprediction_tpu_torch.train.step import (
-    _randn, _step_parts, deform_for_stage, time_with_noise, trainable_params,
+    _randn, _step_parts, deform_for_stage, device_scalars, scalar_columns,
+    step_scalars, time_with_noise, trainable_params,
 )
 from gaussianprediction_tpu_torch.utils.image import (
     _ssim_maps, dssim_l1_loss, l1_loss, psnr,
 )
-from gaussianprediction_tpu_torch.utils.schedules import linear_anneal
 
 # params with a leading per-Gaussian capacity axis: the rows a tile rank
 # deforms under the sharded deform
@@ -98,21 +98,14 @@ def _all_gather_rows(x, group, n: int):
     return torch.cat(parts, dim=0)
 
 
-def _deform_noise(cfg: Config, stage: int, state: GaussianState, iteration,
+def _deform_noise(stage: int, state: GaussianState, sigma: float,
                   generator):
     """The deform's N(0,1) draw at full size ([C, 3] in stage 1, the
-    keypoints' [Ck, 3] in stages 2/3), where its anneal is not 0."""
-    if stage == 0:
+    keypoints' [Ck, 3] in stages 2/3), where its anneal `sigma` is not
+    0."""
+    if stage == 0 or sigma == 0.0:
         return None
-    if stage == 1:
-        sigma = linear_anneal(iteration, 0.1, cfg.train.xyz_noise_iteration)
-        rows = state.params["xyz"]
-    else:
-        sigma = linear_anneal(iteration - cfg.train.second_stage_iteration,
-                              0.1, cfg.train.xyz_noise_iteration)
-        rows = state.params["super_xyz"]
-    if float(sigma) == 0.0:
-        return None
+    rows = state.params["xyz" if stage == 1 else "super_xyz"]
     return _randn(rows.shape, generator, rows.device)
 
 
@@ -150,14 +143,16 @@ def make_sharded_train_step(cfg: Config, stage: int, width: int,
                             sh_degree, bg)
     lam = cfg.opt.lambda_dssim
     denom = float(height * width * 3)
+    cols = scalar_columns(cfg, stage)
+    c_sigma, c_anneal = cols.index("sigma"), cols.index("time_anneal")
 
-    def deform(params, state, t, iteration, noise):
+    def deform(params, state, t, iteration, noise, sigma):
         """(deformed xyz, rotation, scaling, opacity as the render reads
         them, the outputs to backpropagate, their slice or None)."""
         C = state.capacity
         if not (shard_deform and n_tile > 1 and C % n_tile == 0):
             out = deform_for_stage(params, cfg, state, t, iteration, None,
-                                   stage, noise=noise)
+                                   stage, noise=noise, sigma=sigma)
             return (out.xyz, out.rotation, out.scaling, out.opacity), \
                 None, None
         cs = C // n_tile
@@ -168,7 +163,8 @@ def make_sharded_train_step(cfg: Config, stage: int, width: int,
                               **{k: getattr(state, k)[sl] for k in STATS})
         out = deform_for_stage(
             p_sl, cfg, st_sl, t, iteration, None, stage,
-            noise=noise[sl] if stage == 1 and noise is not None else noise)
+            noise=noise[sl] if stage == 1 and noise is not None else noise,
+            sigma=sigma)
         outs = (out.xyz, out.rotation, out.scaling, out.opacity)
         widths = [o.reshape(cs, -1).shape[1] for o in outs]
         with torch.no_grad():
@@ -185,11 +181,15 @@ def make_sharded_train_step(cfg: Config, stage: int, width: int,
             raise ValueError(f"{n_data} cameras, targets and times, one a "
                              "data group")
         time_noises = time_noises or [None] * n_data
-        ts = [time_with_noise(cfg, times[j], iteration, generator, stage,
-                              total_frame, noise=time_noises[j])
+        # the iteration's row of step_scalars, on the host and the device
+        host = step_scalars(cfg, stage, spatial_scale, [iteration])[0]
+        row = device_scalars(host[None], state.device)[0]
+        ts = [time_with_noise(cfg, times[j], generator, total_frame,
+                              row[c_anneal], noise=time_noises[j])
               for j in range(n_data)]
         if noise is None:
-            noise = _deform_noise(cfg, stage, state, iteration, generator)
+            noise = _deform_noise(stage, state, float(host[c_sigma]),
+                                  generator)
         d = mesh.data_index
         cam, gt, t = cams[d], gts[d], ts[d]
         C = state.capacity
@@ -200,7 +200,8 @@ def make_sharded_train_step(cfg: Config, stage: int, width: int,
                             device=state.device, requires_grad=True)
 
         (xyz, rot, scl, op), d_outs, sl = deform(params, state, t,
-                                                 iteration, noise)
+                                                 iteration, noise,
+                                                 row[c_sigma])
         shs = get_shs(params)
         if active_deg is not None:
             kidx = torch.arange(shs.shape[-1], device=shs.device)
@@ -295,7 +296,7 @@ def make_sharded_train_step(cfg: Config, stage: int, width: int,
             dist.all_reduce(n_dropped, op=dist.ReduceOp.MAX,
                             group=mesh.group)
         state, opt_state = finish(state, opt_state, grads, vs_grads,
-                                  ints[:C], ints[C:] > 0, iteration, t, None)
+                                  ints[:C], ints[C:] > 0, row, t, None)
         metrics = {"loss": mets[0], "l1": mets[1] / n_data,
                    "psnr": mets[2] / n_data, "n_dropped": n_dropped[0],
                    "grads": grads}

@@ -37,9 +37,18 @@ draws the same cameras and the same random numbers and runs every host
 event on its replica of the state, so the replicas stay equal; only rank
 0 prints and writes model_path.
 
-Not ported yet, and raising NotImplementedError: several steps per call
-(steps_per_call > 1, ROADMAP.md Queue 1 item 1(b)) and the profiler hook
-(cfg.train.profile_steps > 0, item 1).
+steps_per_call > 1 runs whole chunks of that many iterations, found by
+_chunk_end free of host events and inside one stage, in one call of
+train/step.py:make_train_step_multi (train_chunk, the JAX Trainer's; the
+SH bump and stage transition at the chunk's first iteration, the other
+events at its last); the chunk's draws come from _chunk_noise, K
+_step_noise draws in order. A single iteration (train_one) is the chunk
+of one, so a run equals the run with steps_per_call = 1 bit for bit.
+
+cfg.train.profile_steps > 0 traces that many iterations from the first
+one >= profile_from with torch.profiler (the CPU, and CUDA on the card)
+into a Chrome trace under <model_path>/profile (rank 0 alone under a
+mesh).
 """
 from __future__ import annotations
 
@@ -223,8 +232,9 @@ def stage_transition(state: GaussianState, opt_state, cfg: Config,
 class Trainer:
     """Owns the training state; `run()` trains to cfg.opt.iterations.
 
-    One step per call: `device` (None means CUDA) holds the state and runs
-    every step and event. n_devices > 1 (the module docstring) needs a
+    `device` (None means CUDA) holds the state and runs every step and
+    event; steps_per_call iterations go to it in one call where no host
+    event intervenes. n_devices > 1 (the module docstring) needs a
     process group of n_devices ranks, n_devices % n_data == 0, and this
     rank's device (cuda:LOCAL_RANK, or the CPU)."""
 
@@ -234,10 +244,7 @@ class Trainer:
                  n_data: int = 1):
         from gaussianprediction_tpu_torch.device import resolve_device
 
-        if steps_per_call > 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (several steps per device call) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 1(b): graph capture)")
+        self.steps_per_call = steps_per_call
         self.mesh = None
         self.n_data = n_data
         self.rank = 0
@@ -264,8 +271,8 @@ class Trainer:
         cam0 = scene.train_cameras[0]
         self.width, self.height = cam0.width, cam0.height
         self.extent = float(scene.cameras_extent)
-        self._steps: Dict = {}
         self._batched_steps: Dict = {}   # (stage, batch) -> batched step
+        self._multi_steps: Dict = {}     # (stage, k) -> multi step
         self._sharded_steps: Dict = {}   # (stage, multiplier) -> step
         self._views: Dict = {}     # camera -> (device dict, time, gt)
         self._history = []
@@ -315,6 +322,12 @@ class Trainer:
             return noise, None
         return noise, [time_noise] + [self._randn(())
                                       for _ in range(self.n_data - 1)]
+
+    def _chunk_noise(self, stage: int, k: int):
+        """The draws of k steps (a chunk, or a batch's members): (xyz
+        noises, time noises), k _step_noise draws in order."""
+        draws = [self._step_noise(stage) for _ in range(k)]
+        return [d[0] for d in draws], [d[1] for d in draws]
 
     def _densify_noise(self):
         """The split's N(0,1) offsets [2, C, 3], before the scale."""
@@ -400,12 +413,18 @@ class Trainer:
                 self.mesh, capacity_multiplier=mult)[0]
         return self._sharded_steps[key]
 
-    def _chunk_end(self, a: int, iterations: int, span: int) -> int:
-        """The largest b >= a, at most a + span - 1, such that iterations
-        [a, b] hold no host event: no SH bump or stage start in (a, b], no
-        densify, reset, keypoint-growth, save, checkpoint or report
-        iteration in [a, b) (the JAX Trainer's)."""
+    def _chunk_end(self, a: int, iterations: int,
+                   span: Optional[int] = None) -> int:
+        """The largest b >= a, at most a + span - 1 (span defaults to
+        steps_per_call), such that iterations [a, b] hold no host event:
+        no SH bump or stage start in (a, b], no densify, reset,
+        keypoint-growth, save, checkpoint or report iteration in [a, b)
+        (the JAX Trainer's). One event more than the JAX Trainer's: the
+        white-background opacity reset at densify_from_iter, which the
+        JAX chunks step over where densify_from_iter is no multiple of
+        densification_interval."""
         o, t = self.cfg.opt, self.cfg.train
+        span = self.steps_per_call if span is None else span
 
         def next_mult(x, m):
             return (x // m + 1) * m
@@ -419,18 +438,25 @@ class Trainer:
         post += [e for e in (list(t.save_iterations)
                              + list(t.checkpoint_iterations)
                              + list(t.test_iterations)) if e >= a]
+        if self.cfg.model.white_background and \
+                a <= o.densify_from_iter < o.densify_until_iter:
+            post.append(o.densify_from_iter)
         return min(a + span - 1, iterations, min(pre) - 1, min(post))
 
-    def _step_fn(self, stage: int):
-        if stage not in self._steps:
+    def _multi_step_fn(self, stage: int, k: int):
+        """The multi step of k iterations (k = 1 for train_one); it reads
+        the capacity multiplier at each call."""
+        key = (stage, k)
+        if key not in self._multi_steps:
             from gaussianprediction_tpu_torch.train.step import (
-                make_train_step,
+                make_train_step_multi,
             )
 
-            self._steps[stage] = make_train_step(
+            self._multi_steps[key] = make_train_step_multi(
                 self.cfg, stage, self.width, self.height, self.extent,
-                self.cfg.model.sh_degree, self.scene.total_frame, self._bg)
-        return self._steps[stage]
+                self.cfg.model.sh_degree, self.scene.total_frame, self._bg,
+                k)
+        return self._multi_steps[key]
 
     def _view(self, cam):
         """(camera dict, time, ground truth) on the device, made once per
@@ -570,34 +596,28 @@ class Trainer:
         self._maybe_stage_transition(iteration)
         return stage_of(self.cfg, iteration)
 
+    def _next_views(self, k: int):
+        """The next k training cameras' (camera dicts, targets, times)."""
+        cams = [self.scene.next_train_camera() for _ in range(k)]
+        views = [self._view(c) for c in cams]
+        self._last_cam = cams[-1]
+        return [v[0] for v in views], [v[2] for v in views], \
+            [v[1] for v in views]
+
     def train_one(self, iteration: int) -> Dict:
-        stage = self._start(iteration)
-        cam = self.scene.next_train_camera()
-        cam_d, t, gt = self._view(cam)
-        noise, time_noise = self._step_noise(stage)
-        self.state, self.opt_state, metrics = self._step_fn(stage)(
-            self.state, self.opt_state, cam_d, gt, t, iteration,
-            active_deg=self.active_sh_degree, noise=noise,
-            time_noise=time_noise)
-        metrics.pop("grads", None)
-        self._last_cam = cam
-        self._densification(iteration, stage)
-        return metrics
+        return self.train_chunk(iteration, iteration)
 
     def train_one_sharded(self, iteration: int) -> Dict:
         """One sharded step: n_data cameras (their gradients summed over
         'data'), each frame split into tile bands over 'tile'."""
         stage = self._start(iteration)
-        cams = [self.scene.next_train_camera() for _ in range(self.n_data)]
-        views = [self._view(c) for c in cams]
+        cams, gts, times = self._next_views(self.n_data)
         noise, time_noises = self._sharded_noise(stage)
         self.state, self.opt_state, metrics = self._sharded_step_fn(stage)(
-            self.state, self.opt_state, [v[0] for v in views],
-            [v[2] for v in views], [v[1] for v in views], iteration,
+            self.state, self.opt_state, cams, gts, times, iteration,
             active_deg=self.active_sh_degree, noise=noise,
             time_noises=time_noises)
         metrics.pop("grads", None)
-        self._last_cam = cams[-1]
         self._densification(iteration, stage)
         return metrics
 
@@ -606,28 +626,46 @@ class Trainer:
         step (the reference's --batch). The SH bump and the stage
         transition happen at a, the other host events at b only (the
         caller picks [a, b] by _chunk_end)."""
+        return self._train_span(a, b, self._batched_step_fn)
+
+    def train_chunk(self, a: int, b: int) -> Dict:
+        """Iterations [a, b] in one call of the multi step (the caller
+        picks [a, b] by _chunk_end, in one stage; train_one is the chunk
+        [a, a]). The SH bump and the stage transition happen at a, the
+        other host events at b."""
+        return self._train_span(a, b, self._multi_step_fn)
+
+    def _train_span(self, a: int, b: int, step_fn) -> Dict:
+        """Iterations [a, b] through step_fn(stage, b - a + 1): the SH
+        bump and the stage transition at a, the next b - a + 1 cameras
+        and _chunk_noise's draws, the other host events at b."""
         stage = self._start(a)
-        cams = [self.scene.next_train_camera() for _ in range(b - a + 1)]
-        views = [self._view(c) for c in cams]
-        draws = [self._step_noise(stage) for _ in cams]
-        self.state, self.opt_state, metrics = self._batched_step_fn(
-            stage, len(cams))(
-            self.state, self.opt_state, [v[0] for v in views],
-            [v[2] for v in views], [v[1] for v in views], a,
-            active_deg=self.active_sh_degree,
-            noises=[d[0] for d in draws], time_noises=[d[1] for d in draws])
+        k = b - a + 1
+        cams, gts, times = self._next_views(k)
+        noises, time_noises = self._chunk_noise(stage, k)
+        self.state, self.opt_state, metrics = step_fn(stage, k)(
+            self.state, self.opt_state, cams, gts, times, a,
+            active_deg=self.active_sh_degree, noises=noises,
+            time_noises=time_noises)
         metrics.pop("grads", None)
-        self._last_cam = cams[-1]
         self._densification(b, stage)
         return metrics
+
+    def _profile_stop(self, prof, first: int, last: int, prof_dir: str):
+        """Synchronise, stop the profiler and write its Chrome trace of
+        iterations [first, last] into prof_dir."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(prof_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            prof_dir, f"trace_iter{first}-{last}.json"))
+        if not self.quiet:
+            print(f"[iter {last}] profile trace -> {prof_dir}")
 
     def run(self, iterations: Optional[int] = None,
             model_path: Optional[str] = None):
         cfg = self.cfg
-        if cfg.train.profile_steps > 0:
-            raise NotImplementedError(
-                "cfg.train.profile_steps > 0 (the profiler hook) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 1)")
         iterations = iterations or cfg.opt.iterations
         # under a mesh every rank trains and rank 0 alone reports and writes
         model_path = (model_path or cfg.model_path) if self.rank == 0 \
@@ -642,19 +680,49 @@ class Trainer:
         t_last = t0
         iteration = self.iteration
         batch = max(1, cfg.train.batch)
+        k = self.steps_per_call
+        # the profiler window: profile_steps iterations from the first one
+        # >= profile_from (a chunk counts as its iterations), rank 0 only
+        prof_n = cfg.train.profile_steps if self.rank == 0 else 0
+        prof_dir = os.path.join(model_path or ".", "profile")
+        prof = None
         while iteration < iterations:
             a = iteration + 1
-            b = self._chunk_end(a, iterations, batch) if batch > 1 else a
+            if prof_n > 0 and prof is None and a >= cfg.train.profile_from:
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if self.device.type == "cuda"
+                    else [])
+                prof = profile(activities=acts)
+                prof.start()
+                prof_first, prof_end = a, a + prof_n - 1
             if self.mesh is not None:
                 metrics = self.train_one_sharded(a)
                 iteration = a
-            elif b - a + 1 == batch > 1:
-                metrics = self.train_batch(a, b)
-                iteration = b
+            elif batch > 1:
+                b = self._chunk_end(a, iterations, batch)
+                if b - a + 1 == batch:
+                    metrics = self.train_batch(a, b)
+                    iteration = b
+                else:
+                    metrics = self.train_one(a)
+                    iteration = a
+            elif k > 1:
+                b = self._chunk_end(a, iterations)
+                if b - a + 1 == k and stage_of(cfg, a) == stage_of(cfg, b):
+                    metrics = self.train_chunk(a, b)
+                    iteration = b
+                else:
+                    metrics = self.train_one(a)
+                    iteration = a
             else:
                 metrics = self.train_one(a)
                 iteration = a
             self.iteration = iteration
+            if prof is not None and iteration >= prof_end:
+                self._profile_stop(prof, prof_first, iteration, prof_dir)
+                prof, prof_n = None, 0
             if iteration - self._last_log >= self.log_every:
                 self._last_log = iteration
                 t_last = self._log(iteration, iterations, metrics, t0, t_last)
@@ -674,6 +742,8 @@ class Trainer:
                 if iteration in cfg.train.checkpoint_iterations:
                     self.save_checkpoint(os.path.join(
                         model_path, f"chkpnt{iteration}.npz"))
+        if prof is not None:        # the run ended inside the window
+            self._profile_stop(prof, prof_first, iteration, prof_dir)
         if model_path:
             os.makedirs(model_path, exist_ok=True)
             with open(os.path.join(model_path, "history.json"), "w") as f:

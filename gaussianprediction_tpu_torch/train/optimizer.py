@@ -133,16 +133,20 @@ def stage_start(cfg: Config, stage: int) -> int:
     return cfg.train.third_stage_iteration
 
 
-def adam_step(params, grads, opt_state, cfg: Config, stage: int,
-              spatial_scale: float, iteration):
+def adam_step(params, grads, opt_state, cfg: Config, stage: int, lrs):
     """One Adam update of the stage's groups; the other params and their
     moments pass through. grads needs entries for the active groups only.
-    Returns (new params, new opt_state)."""
+    lrs: {group: 0-d f32 learning rate on the params' device}, a row of
+    the training steps' per-iteration table (train/step.py:row_lrs). The
+    bias corrections come from opt_state["step"] on its device. Returns
+    (new params, new opt_state)."""
     active = active_groups(cfg, stage)
     step = opt_state["step"] + 1
     stepf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(BETA1, device=stepf.device), stepf)
-    bc2 = 1.0 - torch.pow(torch.tensor(BETA2, device=stepf.device), stepf)
+    dev = stepf.device
+    # torch.full fills on the device: no copy from the host
+    bc1 = 1.0 - torch.pow(torch.full((), BETA1, device=dev), stepf)
+    bc2 = 1.0 - torch.pow(torch.full((), BETA2, device=dev), stepf)
 
     new_params, new_m, new_v = {}, {}, {}
     for key, p in params.items():
@@ -151,7 +155,7 @@ def adam_step(params, grads, opt_state, cfg: Config, stage: int,
         if group not in active:
             new_params[key], new_m[key], new_v[key] = p, m, v
             continue
-        lr = group_lr(group, cfg, spatial_scale, iteration).to(stepf.device)
+        lr = lrs[group]
 
         def upd(p_, g, m_, v_):
             m2 = BETA1 * m_ + (1 - BETA1) * g

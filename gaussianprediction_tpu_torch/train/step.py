@@ -13,8 +13,13 @@ masked per-group Adam.
 
 Random draws come from a torch.Generator, or are passed pre-drawn (the
 parity tests hand both packages the same N(0,1) draws; the Trainer,
-train/loop.py, passes its own). make_train_step_batched accumulates the
-gradients of several renders into one optimizer step.
+train/loop.py, passes its own). What a step reads per iteration
+(learning rates, noise anneals, the statistics' window flags) is computed
+on the host and reaches the device as one table (step_scalars), so a
+step makes no host synchronisation on the card.
+make_train_step_multi runs K iterations in one call (make_train_step is
+its body run once); make_train_step_batched accumulates the gradients of
+several renders into one optimizer step.
 """
 from __future__ import annotations
 
@@ -43,50 +48,54 @@ def _randn(shape, generator: Optional[torch.Generator], device):
 
 def deform_for_stage(params, cfg: Config, state: GaussianState, t,
                      iteration: int, generator: Optional[torch.Generator],
-                     stage: int, noise=None):
+                     stage: int, noise=None, sigma=None):
+    """The stage's deform; noise and sigma as models/deform.py:_jitter
+    takes them (stages 1-3)."""
     if stage == 0:
         assert noise is None, "pre-drawn noise only applies to stage 1"
         return D.deform_warmup(params, cfg)
     if stage == 1:
         return D.deform_stage1(params, cfg, state, t, iteration, generator,
-                               noise=noise)
+                               noise=noise, sigma=sigma)
     return D.deform_stage23(params, cfg, state, t, iteration, generator,
-                            noise=noise)
+                            noise=noise, sigma=sigma)
 
 
-def time_with_noise(cfg: Config, t, iteration: int,
-                    generator: Optional[torch.Generator], stage: int,
-                    total_frame: int, noise=None):
+def time_noise_anneal(cfg: Config, iteration: int, stage: int):
+    """The time jitter's anneal at a global iteration, a 0-d f32 tensor:
+    1 down to 0 at time_noise_iteration; from stage 2 on it restarts at
+    the stage-2 start and runs twice as long."""
+    if stage >= 2:
+        return linear_anneal(iteration - cfg.train.second_stage_iteration,
+                             1.0, cfg.train.time_noise_iteration * 2)
+    return linear_anneal(iteration, 1.0, cfg.train.time_noise_iteration)
+
+
+def time_with_noise(cfg: Config, t, generator: Optional[torch.Generator],
+                    total_frame: int, anneal, noise=None):
     """t + N(0,1) * time_noise_ratio / total_frame * anneal, when
-    use_time_decay is on; from stage 2 on the anneal restarts at the
-    stage-2 start and runs twice as long. `noise` is the N(0,1) draw, or
-    None to draw it from `generator`."""
+    use_time_decay is on. `anneal` is time_noise_anneal as a 0-d tensor
+    on t's device (the step's row of step_scalars); `noise` the N(0,1)
+    draw, or None to draw it from `generator`."""
     if not cfg.train.use_time_decay:
         return t
-    if stage >= 2:
-        anneal = linear_anneal(iteration - cfg.train.second_stage_iteration,
-                               1.0, cfg.train.time_noise_iteration * 2)
-    else:
-        anneal = linear_anneal(iteration, 1.0,
-                               cfg.train.time_noise_iteration)
     if noise is None:
         noise = _randn((), generator, t.device)
     noise = torch.as_tensor(noise, dtype=torch.float32, device=t.device)
-    return t + noise * cfg.train.time_noise_ratio / total_frame * \
-        anneal.to(t.device)
+    return t + noise * cfg.train.time_noise_ratio / total_frame * anneal
 
 
 def render_at_time(params, cfg: Config, state: GaussianState, cam, t,
                    iteration: int, generator: Optional[torch.Generator],
                    stage: int, width: int, height: int, bg, sh_degree: int,
                    need_tidx: bool = False, active_sh_degree=None,
-                   noise=None, means2d_dummy=None):
+                   noise=None, means2d_dummy=None, sigma=None):
     """Deform + render one view at time t (a 0-d f32 tensor).
 
     active_sh_degree zeroes the coefficients beyond (deg+1)^2 under the
     max-degree basis, as the JAX twin does."""
     out = deform_for_stage(params, cfg, state, t, iteration, generator,
-                           stage, noise=noise)
+                           stage, noise=noise, sigma=sigma)
     shs = get_shs(params)          # [C, 3, K]
     if active_sh_degree is not None:
         kidx = torch.arange(shs.shape[-1], device=shs.device)
@@ -113,25 +122,99 @@ def trainable_params(state: GaussianState, groups):
     return trainable, params
 
 
+# step_scalars' columns after the learning rates: the xyz jitter's sigma
+# (0 in stage 0), the time jitter's anneal, and 0/1 flags of the
+# statistics' iteration windows
+SCALARS = ("sigma", "time_anneal", "do_stats", "kpt_window", "teach_window")
+
+
+def scalar_columns(cfg: Config, stage: int):
+    """The names of step_scalars' columns at a stage: the learning rate of
+    each optimizer group the stage trains, then SCALARS."""
+    return opt_mod.active_groups(cfg, max(stage, 1)) + SCALARS
+
+
+def row_lrs(cfg: Config, stage: int, row):
+    """adam_step's learning rates {group: 0-d} from a row of step_scalars'
+    table."""
+    groups = opt_mod.active_groups(cfg, max(stage, 1))
+    return {g: row[i] for i, g in enumerate(groups)}
+
+
+def step_scalars(cfg: Config, stage: int, spatial_scale: float,
+                 iterations) -> torch.Tensor:
+    """What a step reads per iteration, as one [K, S] f32 table on the CPU
+    for the K `iterations` (columns: scalar_columns): each trained
+    optimizer group's learning rate, the xyz jitter's sigma, the time
+    jitter's anneal, and the flags of the densification statistics
+    (do_stats: iteration < densify_until_iter; kpt_window: stages 2/3
+    before the keypoint-growth window's end; teach_window: stages 2/3
+    inside that window, the teacher residual's). Every value is computed
+    in f32 through utils/schedules.py one iteration at a time, as the
+    host computes it for a single step: the card's exp, log and sin may
+    round otherwise."""
+    o, tr = cfg.opt, cfg.train
+    s2 = tr.second_stage_iteration
+    groups = opt_mod.active_groups(cfg, max(stage, 1))
+    rows = []
+    for it in iterations:
+        late = stage >= 2 and it < tr.adaptive_end_iter + s2
+        vals = [opt_mod.group_lr(g, cfg, spatial_scale, it) for g in groups]
+        vals += [D.xyz_noise_sigma(cfg, it, stage) if stage
+                 else torch.zeros(()), time_noise_anneal(cfg, it, stage)]
+        vals += [torch.tensor(float(f)) for f in (
+            it < o.densify_until_iter, late,
+            late and it >= tr.adaptive_from_iter + s2)]
+        rows.append(torch.stack([v.to(torch.float32).reshape(())
+                                 for v in vals]))
+    return torch.stack(rows)
+
+
+def device_scalars(table, device):
+    """step_scalars' table on `device`: on the card, one copy from pinned
+    memory that does not block the host."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return table.to(device)
+    return table.pin_memory().to(device, non_blocking=True)
+
+
+def _jitters(cfg: Config, stage: int, state: GaussianState, t, generator,
+             total_frame: int, noise, time_noise, row, host_row):
+    """(t with its time jitter, the xyz noise or None) of a step, from its
+    row of step_scalars' table on the device and the same row on the
+    host. Draws not given come from `generator`: the
+    time noise, then the xyz noise where the host row's sigma is not 0,
+    the order in which the deform drew them."""
+    cols = scalar_columns(cfg, stage)
+    t = time_with_noise(cfg, t, generator, total_frame,
+                        row[cols.index("time_anneal")], noise=time_noise)
+    if noise is None and stage >= 1 and \
+            float(host_row[cols.index("sigma")]) != 0.0:
+        x = state.params["xyz" if stage == 1 else "super_xyz"]
+        noise = _randn(x.shape, generator, x.device)
+    return t, noise
+
+
 def _step_parts(cfg: Config, stage: int, width: int, height: int,
                 spatial_scale: float, sh_degree: int, bg):
-    """The two halves of a step, shared by make_train_step and
-    make_train_step_batched: loss_and_grads (one render, its loss and
-    gradients; the graph is freed on return) and finish (the
-    densification statistics and the masked Adam update)."""
+    """The two halves of a step, shared by every training step:
+    loss_and_grads (one render, its loss and gradients; the graph is
+    freed on return) and finish (the densification statistics and the
+    masked Adam update)."""
     opt_stage = max(stage, 1)
-    s2 = cfg.train.second_stage_iteration
     groups = opt_mod.active_groups(cfg, opt_stage)
+    col = {k: i for i, k in enumerate(scalar_columns(cfg, stage))}
 
     def loss_and_grads(state, cam, gt, t, iteration, generator, active_deg,
-                       noise):
+                       noise, sigma=None):
         trainable, params = trainable_params(state, groups)
         dummy = torch.zeros((state.capacity, 2), dtype=torch.float32,
                             device=state.device, requires_grad=True)
         pkg, dout = render_at_time(
             params, cfg, state, cam, t, iteration, generator, stage, width,
             height, bg, sh_degree, active_sh_degree=active_deg, noise=noise,
-            means2d_dummy=dummy)
+            means2d_dummy=dummy, sigma=sigma)
         img = pkg["render"]
         loss = dssim_l1_loss(img, gt, cfg.opt.lambda_dssim) + \
             D.motion_feature_reg(params, stage)
@@ -154,22 +237,24 @@ def _step_parts(cfg: Config, stage: int, width: int, height: int,
         return loss.detach(), grads, next(it), aux
 
     @torch.no_grad()
-    def finish(state, opt_state, grads, vs_grads, radii, vis,
-               iteration: int, t_resid, delta_xyz):
+    def finish(state, opt_state, grads, vs_grads, radii, vis, row, t_resid,
+               delta_xyz):
         """Statistics from the carrier's gradient vs_grads, the radii and
         the visibility, the teacher residual at time t_resid against
         delta_xyz (none when delta_xyz is None: the sharded step's, as
-        the JAX sharded step keeps no teacher statistics), then Adam at
-        `iteration`."""
+        the JAX sharded step keeps no teacher statistics), then Adam. row:
+        the iteration's row of step_scalars' table on the state's device;
+        its flags gate the statistics (torch.where, no host branch) and
+        its learning rates drive Adam."""
         # row-major: the norm's rounding depends on the layout, and the
         # sharded step's all-reduced carrier gradient is row-major
         vs_norm = torch.linalg.norm(vs_grads.contiguous(), dim=-1)
-        do_stats = vis if iteration < cfg.opt.densify_until_iter \
-            else torch.zeros_like(vis)
-        if stage >= 2 and iteration < cfg.train.adaptive_end_iter + s2:
+        do_stats = vis & (row[col["do_stats"]] > 0)
+        if stage >= 2:
             # the keypoint-growth window, while free keypoint rows last
             do_stats = do_stats | (
-                vis & (state.n_kpts() < cfg.model.kpt_capacity()))
+                vis & (row[col["kpt_window"]] > 0)
+                & (state.n_kpts() < cfg.model.kpt_capacity()))
         state = state.replace(
             max_radii2D=torch.where(
                 do_stats, torch.maximum(state.max_radii2D, radii),
@@ -183,23 +268,54 @@ def _step_parts(cfg: Config, stage: int, width: int, height: int,
         )
         if stage >= 2 and cfg.train.densify_from_teaching and \
                 delta_xyz is not None:
-            in_window = (cfg.train.adaptive_from_iter + s2 <= iteration
-                         < cfg.train.adaptive_end_iter + s2)
-            if in_window:
-                resid = D.teacher_motion_residual(
-                    state.params, cfg, D.time_encode(cfg, t_resid),
-                    delta_xyz)
-                state = state.replace(
-                    xyz_motion_accum_max=torch.where(
-                        resid > state.xyz_motion_accum_max, resid,
-                        state.xyz_motion_accum_max),
-                    motion_denom=state.motion_denom + 1.0)
+            win = row[col["teach_window"]]
+            resid = D.teacher_motion_residual(
+                state.params, cfg, D.time_encode(cfg, t_resid), delta_xyz)
+            state = state.replace(
+                xyz_motion_accum_max=torch.where(
+                    (win > 0) & (resid > state.xyz_motion_accum_max), resid,
+                    state.xyz_motion_accum_max),
+                motion_denom=state.motion_denom + win)
         new_params, opt_state = opt_mod.adam_step(
-            state.params, grads, opt_state, cfg, opt_stage, spatial_scale,
-            iteration)
+            state.params, grads, opt_state, cfg, opt_stage,
+            row_lrs(cfg, stage, row))
         return state.replace(params=new_params), opt_state
 
     return loss_and_grads, finish
+
+
+def _run_steps(cfg: Config, stage: int, width: int, height: int,
+               spatial_scale: float, sh_degree: int, total_frame: int, bg):
+    """run(state, opt_state, cams, gts, times, iteration0, generator,
+    active_deg, noises, time_noises) -> (state, opt_state, the last
+    step's metrics): len(cams) steps at iterations iteration0,
+    iteration0 + 1, ..., one after another, their scalars uploaded as one
+    table. The body of make_train_step (one step) and of
+    make_train_step_multi (K)."""
+    loss_and_grads, finish = _step_parts(cfg, stage, width, height,
+                                         spatial_scale, sh_degree, bg)
+    c_sigma = scalar_columns(cfg, stage).index("sigma")
+
+    def run(state, opt_state, cams, gts, times, iteration0, generator,
+            active_deg, noises, time_noises):
+        its = [iteration0 + i for i in range(len(cams))]
+        host = step_scalars(cfg, stage, spatial_scale, its)
+        rows = device_scalars(host, state.device)
+        for i, it in enumerate(its):
+            t, noise = _jitters(cfg, stage, state, times[i], generator,
+                                total_frame, noises[i], time_noises[i],
+                                rows[i], host[i])
+            loss, grads, vs_grads, aux = loss_and_grads(
+                state, cams[i], gts[i], t, it, generator, active_deg, noise,
+                rows[i, c_sigma])
+            state, opt_state = finish(
+                state, opt_state, grads, vs_grads, aux["radii"],
+                aux["visibility"], rows[i], t, aux["delta_xyz"])
+        metrics = {"loss": loss, "l1": aux["l1"], "psnr": aux["psnr"],
+                   "n_dropped": aux["n_dropped"], "grads": grads}
+        return state, opt_state, metrics
+
+    return run
 
 
 def make_train_step(cfg: Config, stage: int, width: int, height: int,
@@ -216,25 +332,58 @@ def make_train_step(cfg: Config, stage: int, width: int, height: int,
     and time jitter, drawn from `generator` when None; noise is [C, 3] (the
     Gaussians) in stage 1 and [Ck, 3] (the keypoints) in stages 2/3.
     metrics: loss, l1, psnr, n_dropped, and grads (the gradient of every
-    trainable param, the JAX package's tree layout)."""
-    loss_and_grads, finish = _step_parts(cfg, stage, width, height,
-                                         spatial_scale, sh_degree, bg)
+    trainable param, the JAX package's tree layout). The step is
+    make_train_step_multi's body run once."""
+    run = _run_steps(cfg, stage, width, height, spatial_scale, sh_degree,
+                     total_frame, bg)
 
     def step(state: GaussianState, opt_state, cam, gt, t, iteration: int,
              generator: Optional[torch.Generator] = None, active_deg=None,
              noise=None, time_noise=None):
-        t = time_with_noise(cfg, t, iteration, generator, stage, total_frame,
-                            noise=time_noise)
-        loss, grads, vs_grads, aux = loss_and_grads(
-            state, cam, gt, t, iteration, generator, active_deg, noise)
-        state, opt_state = finish(
-            state, opt_state, grads, vs_grads, aux["radii"],
-            aux["visibility"], iteration, t, aux["delta_xyz"])
-        metrics = {"loss": loss, "l1": aux["l1"], "psnr": aux["psnr"],
-                   "n_dropped": aux["n_dropped"], "grads": grads}
-        return state, opt_state, metrics
+        return run(state, opt_state, [cam], [gt], [t], iteration, generator,
+                   active_deg, [noise], [time_noise])
 
     return step
+
+
+def make_train_step_multi(cfg: Config, stage: int, width: int, height: int,
+                          spatial_scale: float, sh_degree: int,
+                          total_frame: int, bg, k_steps: int):
+    """k_steps iterations in one call, the twin of the JAX
+    make_train_step_multi (a lax.scan of the single step):
+
+    multi(state, opt_state, cams, gts, times, iteration0, active_deg=None,
+          noises=None, time_noises=None, generator=None)
+      -> (state, opt_state, metrics)
+
+    Step i renders cams[i] against gts[i] at times[i] (sequences of K
+    camera dicts, [H, W, 3] targets and 0-d times) at iteration
+    iteration0 + i, with noises[i] / time_noises[i] as the single step's
+    noise / time_noise (None, or a None entry: drawn from `generator` in
+    the single step's order). The steps run one after another on the
+    state's device through make_train_step's body, so a call equals K
+    single steps bit for bit. What they read per iteration (learning
+    rates, anneals, the statistics' window flags) goes to the device as
+    one table (step_scalars) in one copy from pinned memory; with the
+    draws made on the device beforehand, a call makes no host
+    synchronisation on the card between its entry and its return (the
+    first call also builds the kernel library and the per-device
+    constants). metrics: the last step's (loss, l1, psnr, n_dropped,
+    grads)."""
+    run = _run_steps(cfg, stage, width, height, spatial_scale, sh_degree,
+                     total_frame, bg)
+    none = [None] * k_steps
+
+    def multi(state: GaussianState, opt_state, cams, gts, times,
+              iteration0: int, active_deg=None, noises=None,
+              time_noises=None, generator: Optional[torch.Generator] = None):
+        if not (len(cams) == len(gts) == len(times) == k_steps):
+            raise ValueError(f"{k_steps} cameras, targets and times")
+        return run(state, opt_state, cams, gts, times, iteration0, generator,
+                   active_deg, none if noises is None else noises,
+                   none if time_noises is None else time_noises)
+
+    return multi
 
 
 def make_train_step_batched(cfg: Config, stage: int, width: int,
@@ -261,6 +410,7 @@ def make_train_step_batched(cfg: Config, stage: int, width: int,
     (the largest), grads (the summed gradients)."""
     loss_and_grads, finish = _step_parts(cfg, stage, width, height,
                                          spatial_scale, sh_degree, bg)
+    c_sigma = scalar_columns(cfg, stage).index("sigma")
 
     def step(state: GaussianState, opt_state, cams, gts, times,
              iteration0: int, generator: Optional[torch.Generator] = None,
@@ -270,15 +420,18 @@ def make_train_step_batched(cfg: Config, stage: int, width: int,
                              "times")
         noises = noises or [None] * batch
         time_noises = time_noises or [None] * batch
+        its = [iteration0 + j for j in range(batch)]
+        host = step_scalars(cfg, stage, spatial_scale, its)
+        rows = device_scalars(host, state.device)
         grads = vs_grads = radii = vis = loss = None
         l1s, psnrs, drops = [], [], []
-        for j in range(batch):
-            it = iteration0 + j
-            t = time_with_noise(cfg, times[j], it, generator, stage,
-                                total_frame, noise=time_noises[j])
+        for j, it in enumerate(its):
+            t, noise = _jitters(cfg, stage, state, times[j], generator,
+                                total_frame, noises[j], time_noises[j],
+                                rows[j], host[j])
             lj, gj, vj, aux = loss_and_grads(state, cams[j], gts[j], t, it,
-                                             generator, active_deg,
-                                             noises[j])
+                                             generator, active_deg, noise,
+                                             rows[j, c_sigma])
             if grads is None:
                 grads, vs_grads, loss = gj, vj, lj
                 radii, vis = aux["radii"], aux["visibility"]
@@ -292,8 +445,8 @@ def make_train_step_batched(cfg: Config, stage: int, width: int,
             psnrs.append(aux["psnr"])
             drops.append(aux["n_dropped"])
         state, opt_state = finish(
-            state, opt_state, grads, vs_grads, radii, vis,
-            iteration0 + batch - 1, times[-1], aux["delta_xyz"])
+            state, opt_state, grads, vs_grads, radii, vis, rows[-1],
+            times[-1], aux["delta_xyz"])
         metrics = {"loss": loss, "l1": torch.stack(l1s).mean(),
                    "psnr": torch.stack(psnrs).mean(),
                    "n_dropped": torch.stack(drops).max(), "grads": grads}

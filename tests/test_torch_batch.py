@@ -129,8 +129,9 @@ def batched():
     loss_and_grads, _ = tstep._step_parts(tc, 1, W, H, EXTENT, 1, t(bg))
     total = None
     for j in range(B):
-        tt = tstep.time_with_noise(tc, ttimes[j], IT0 + j, None, 1,
-                                   TOTAL_FRAME, noise=t(time_noise[j]))
+        tt = tstep.time_with_noise(tc, ttimes[j], None, TOTAL_FRAME,
+                                   tstep.time_noise_anneal(tc, IT0 + j, 1),
+                                   noise=t(time_noise[j]))
         _, g, _, _ = loss_and_grads(ts, tcams[j], t(gts[j]), tt, IT0 + j,
                                     None, None, t(xyz_noise[j]))
         total = g if total is None else topt.tree_map(torch.add, total, g)

@@ -3,10 +3,10 @@ package's train.py, and end to end on the CPU.
 
 resolve_config of the port and of train.py give the same config JSON for
 the same argv, the parsers have the same flags and defaults, and a port
-cfg.json loads in the JAX package's Config. The flags whose path the port
-lacks raise NotImplementedError naming their ROADMAP.md item, before any
-file is written (--n_devices > 1 without torchrun raises naming the
-launch line); --weight_encoder brick|fourier, --distill_init_steps,
+cfg.json loads in the JAX package's Config. The flags once refused train:
+--steps_per_call 4 runs a chunk in one call, --profile_steps 2 writes a
+trace (--n_devices > 1 without torchrun raises naming the launch line,
+before any file is written); --weight_encoder brick|fourier, --distill_init_steps,
 --batch 2 and --step_opacity --use_time_decay train across both stage
 transitions. The CLIs refuse to run without a card
 unless GPT_FORCE_CPU=1. End to end, under GPT_FORCE_CPU=1, on a 32x32 D-NeRF
@@ -83,18 +83,50 @@ def test_parser_flags_and_defaults_equal():
 
 @pytest.mark.parametrize("flags,item", [
     (["--n_devices", "2"], 8),
-    (["--steps_per_call", "4"], 1), (["--profile_steps", "5"], 1),
+    (["--steps_per_call", "4"], 1),
+    (["--profile_steps", "2", "--profile_from", "5"], 1),
 ])
-def test_unported_flags_raise(tmp_path, flags, item):
+def test_unported_flags_raise(trained, tmp_path, on_cpu, monkeypatch, flags,
+                              item):
+    """Flags once refused: several GPUs (ROADMAP item 8) need torchrun's
+    process group, and without it --n_devices > 1 raises naming the
+    launch line before any file is written; several steps a call and the
+    profiler window (item 1) train."""
+    from gaussianprediction_tpu_torch.train import loop as L
+
     model = tmp_path / "m"
-    # item 8 (several GPUs) is ported: without torchrun's process group,
-    # --n_devices > 1 raises naming the launch line
-    err, match = (RuntimeError, "torchrun --standalone") if item == 8 else \
-        (NotImplementedError, rf"ROADMAP\.md, Queue 1 item {item}\)")
-    with pytest.raises(err, match=match):
-        TT.main(["-s", str(tmp_path), "-m", str(model), "--preset", "test",
-                 *flags])
-    assert not model.exists()
+    if item == 8:
+        with pytest.raises(RuntimeError, match="torchrun --standalone"):
+            TT.main(["-s", str(tmp_path), "-m", str(model), "--preset",
+                     "test", *flags])
+        assert not model.exists()
+        return
+    chunks = []
+    orig = L.Trainer.train_chunk
+    monkeypatch.setattr(L.Trainer, "train_chunk", lambda self, a, b: (
+        chunks.append((a, b)), orig(self, a, b))[1])
+    # the chunks cross the stage transitions; the profiler window needs 6
+    # iterations of stage 0
+    chunked = flags[0] == "--steps_per_call"
+    run = SHORT_STAGES if chunked else [
+        "--preset", "test", "--iterations", "6", "--max_time", "0.75",
+        "--test_iterations", "6"]
+    last = int(run[run.index("--iterations") + 1])
+    tr, out = quiet_call(TT.main, ["-s", trained[0], "-m", str(model),
+                                   *run, *flags])
+    assert "Training complete" in out and tr.iteration == last
+    # every iteration runs in a chunk, of one where none of 4 fits
+    assert [i for a, b in chunks for i in range(a, b + 1)] == \
+        list(range(1, last + 1))
+    if chunked:
+        # the stage starts at 4, 11 and 14 and the report at 16 leave one
+        # whole chunk of 4
+        assert tr.steps_per_call == 4 and \
+            [(a, b) for a, b in chunks if b > a] == [(4, 7)]
+    else:
+        assert all(a == b for a, b in chunks)
+        assert f"[iter 6] profile trace -> {model / 'profile'}" in out
+        assert os.listdir(model / "profile") == ["trace_iter5-6.json"]
 
 
 def test_clis_need_a_card_without_the_switch(tmp_path, monkeypatch):

@@ -51,8 +51,10 @@ renders stitch to the whole render bit for bit, an L1 loss backpropagated
 band by band matches the whole frame's within the streams' cumsum
 roundoff, the sharded step on a one-rank nccl mesh equals the single step
 bit for bit, and two gloo ranks on cuda:0 (where gloo takes CUDA tensors)
-match the single step within the JAX package's bounds. Whether a
-card is present is decided inside the `cuda_device` fixture; without one
+match the single step within the JAX package's bounds. The multi step
+(K = 3) equals three single steps bit for bit at stages 1 and 2, and makes
+no host synchronisation under torch.cuda.set_sync_debug_mode("error").
+Whether a card is present is decided inside the `cuda_device` fixture; without one
 every test here skips.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -689,7 +691,7 @@ def test_trainer_on_card_crosses_stage_1_and_round_trips(cuda_device,
     logged = [h for h in hist if "loss" in h]
     assert len(logged) == 6 and all(h["n_dropped"] == 0 for h in logged)
     assert all(np.isfinite(h["loss"]) for h in logged)
-    assert sorted(tr._steps) == [0, 1]
+    assert sorted(tr._multi_steps) == [(0, 1), (1, 1)]
     path = str(tmp_path / "chkpnt30.npz")
     tr.save_checkpoint(path)
     tr2 = Trainer(get_preset("test"), Scene(info), seed=5,
@@ -914,6 +916,91 @@ def _step_twice(dev, cfg, state, opt, cam, gt, t, batch=1):
                  torch.Generator(dev).manual_seed(5)) for _ in range(2)]
 
 
+def _stage2_model(dev):
+    """A `test`-preset model through the stage-1 -> 2 transition:
+    (cfg, state, opt_state, the transition's iteration)."""
+    from gaussianprediction_tpu_torch.config import get_preset
+    from gaussianprediction_tpu_torch.models.gaussians import create_from_pcd
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.loop import stage_transition
+
+    cfg = get_preset("test")
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (400, 3)).astype(np.float32)
+    state = create_from_pcd(cfg, pts, cols, torch.Generator().manual_seed(0),
+                            device=dev)
+    params = dict(state.params)
+    params["motion_feature"] = 0.3 * torch.randn(
+        params["motion_feature"].shape, device=dev,
+        generator=torch.Generator(dev).manual_seed(1))
+    it = cfg.train.second_stage_iteration + 1
+    state, opt = stage_transition(state.replace(params=params),
+                                  O.init_adam(params), cfg, it,
+                                  torch.Generator(dev).manual_seed(2))
+    return cfg, state, opt, it
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_multi_step_on_card_equals_single_steps(cuda_device, stage):
+    """make_train_step_multi (K = 3) against three single steps on the
+    card, bit for bit (params, moments, statistics, the last metrics),
+    then the multi call again under torch.cuda.set_sync_debug_mode
+    ("error"): no host synchronisation inside it, and the same bits.
+    Stage 1 from _binning_model's dnerf model across densify_until_iter,
+    stage 2 from the `test`-preset model at the transition."""
+    from gaussianprediction_tpu_torch.models.gaussians import STATS
+    from gaussianprediction_tpu_torch.train import optimizer as O
+    from gaussianprediction_tpu_torch.train.step import (
+        make_train_step, make_train_step_multi,
+    )
+
+    dev, K = cuda_device, 3
+    if stage == 1:
+        cfg, state, opt, cam, gt, t = _binning_model(dev)
+        it0, W, sh = cfg.opt.densify_until_iter - 1, 128, 3
+    else:
+        cfg, state, opt, it0 = _stage2_model(dev)
+        W, sh = 64, 1
+        cam = orbit_camera(0.9, width=W, height=W).to_device_dict(dev)
+        gt = torch.rand((W, W, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+        t = torch.tensor(0.3, device=dev)
+    rows = state.params["xyz" if stage == 1 else "super_xyz"]
+    g = torch.Generator(dev).manual_seed(6)
+    noises = [torch.randn(rows.shape, generator=g, device=dev)
+              for _ in range(K)]
+    bg = torch.zeros(3, device=dev)
+    single = make_train_step(cfg, stage, W, W, 1.0, sh, 50, bg)
+    s, o = state, opt
+    for i in range(K):
+        s, o, m = single(s, o, cam, gt, t, it0 + i, noise=noises[i])
+    multi = make_train_step_multi(cfg, stage, W, W, 1.0, sh, 50, bg, K)
+
+    def call():
+        return multi(state, opt, [cam] * K, [gt] * K, [t] * K, it0,
+                     noises=noises)
+
+    outs = [call()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs.append(call())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(m["n_dropped"]) == 0 and torch.isfinite(m["loss"])
+    for s3, o3, m3 in outs:
+        assert (s.kpt_alive is None) == (s3.kpt_alive is None)
+        for a, b in zip(
+                O.tree_leaves([s.params, o, m, s.alive]
+                              + [getattr(s, k) for k in STATS]),
+                O.tree_leaves([s3.params, o3, m3, s3.alive]
+                              + [getattr(s3, k) for k in STATS])):
+            assert torch.equal(a, b)
+        if s.kpt_alive is not None:
+            assert torch.equal(s.kpt_alive, s3.kpt_alive)
+
+
 def test_binning_render_and_step_on_card(cuda_device, monkeypatch):
     """render(fast_binning=False) on the card: the fast path's render bit
     for bit, the forward kernel launched on the CHUNK-aligned stream; a
@@ -1023,7 +1110,8 @@ def test_batched_step_on_card(cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(5)
     total = None
     for j in range(3):
-        tj = S.time_with_noise(cfg, t, 2000 + j, gen, 1, 50)
+        tj = S.time_with_noise(cfg, t, gen, 50, S.time_noise_anneal(
+            cfg, 2000 + j, 1).to(cuda_device))
         g = loss_and_grads(state, cam, gt, tj, 2000 + j, gen, None, None)[1]
         total = g if total is None else O.tree_map(torch.add, total, g)
     for a, b in zip(O.tree_leaves(outs[0][2]["grads"]),

@@ -378,8 +378,9 @@ def test_convert_round_trips_stage2_state(model, tmp_path):
         {k: ts.params[k] for k in grads},
         grads, {"m": {k: topt2["m"][k] for k in grads},
                 "v": {k: topt2["v"][k] for k in grads},
-                "step": topt2["step"]}, tcfg.get_preset("test"), 2, 1.0,
-        31_000)
+                "step": topt2["step"]}, tcfg.get_preset("test"), 2,
+        tstep.row_lrs(tcfg.get_preset("test"), 2, tstep.step_scalars(
+            tcfg.get_preset("test"), 2, 1.0, [31_000])[0]))
     for a, b in zip(_leaves(new["hash_tables"]),
                     _leaves(ts.params["hash_tables"])):
         assert (a < b).all()

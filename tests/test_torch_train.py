@@ -10,7 +10,10 @@ reaches opacity_thres, and the lifecycle pass re-runs the deform MLP),
 time decay off and the SH basis truncated (active degree 1 of 3). The
 JAX step draws its time and xyz noise from its key; the test draws the
 same numbers with jax.random and hands them to the port. Each JAX step is
-jitted once and shared by the cases that read it. The implicit lifecycle
+jitted once and shared by the cases that read it. The port's multi step
+(make_train_step_multi, K = 2 at stage 1) is held against the JAX
+make_train_step_multi's two inner steps, run through the stage-1 jit
+(test_multi_step_matches_jax states how). The implicit lifecycle
 (Δo from the MLP) is held by a VJP of deform_stage1 alone, without a
 render, for both opacity types.
 
@@ -161,6 +164,8 @@ def steps():
             noise=None if xyz_noise is None else t(xyz_noise),
             time_noise=t(time_noise))
         out[case] = (js2, jopt2, jm, ts2, topt2, tm, opt)
+        if case == 1:
+            out["jax_step_1"] = jfn
     return out
 
 
@@ -223,6 +228,101 @@ def test_train_step_matches_jax(steps, stage):
     if deg is not None:
         # coefficients beyond the active degree get no gradient
         assert not tm["grads"]["features_rest"][:, (deg + 1) ** 2 - 1:].any()
+
+
+# (orbit angle, time) of each step of the multi-step case: views without
+# a Gaussian whose tile rect has width but no height, as
+# tests/test_torch_batch.py picks them. For one, the JAX package emits a
+# phantom instance that shifts every gradient of its backward (ROADMAP.md,
+# "Found in the reference"): at angle 1.3 this state has one, and the JAX
+# gradients move by their size.
+MULTI_VIEWS = ((0.9, 0.4), (1.1, 0.6))
+
+
+def test_multi_step_matches_jax(steps):
+    """The port's make_train_step_multi, K = 2 at stage 1 with time decay
+    on, from the stage-1 case's state, against the JAX
+    make_train_step_multi. That is a lax.scan of the stage's step over
+    keys split(key, K) at iterations iteration0 + i (JAX
+    train/step.py:make_train_step_multi), so the reference runs its two
+    inner steps as two calls of the stage-1 case's jitted step (one jit
+    for the module), with those keys and iterations; the port gets the
+    same draws (step j: k_noise_j, k_time_j = split(split(key, 2)[j])).
+
+    Tolerances, each the single-step test's taken once a step, so twice
+    over two steps: the last step's loss and l1 1e-5 relative; the first
+    moments and the second moments 4e-4 of the leaf's largest JAX value
+    (one step holds m to 2e-5 of max |g| = 2e-4 of max |m|, and v to 2e-4
+    of max |v|); the params 4e-3 of the group's largest learning rate of
+    the two steps; denom and max_radii2D equal, the gradient norms within
+    4e-4 of their largest value."""
+    K, it0 = len(MULTI_VIEWS), 2000
+    jfn = steps["jax_step_1"]
+    _, tc = _cfgs()
+    params, alive, stats, opt = _start()
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    gts = np.random.default_rng(6).uniform(0, 1, (K, H, W, 3)).astype(
+        np.float32)
+    js, jopt = _jax_state(params, alive, stats), jax.tree.map(jnp.asarray,
+                                                              opt)
+    xyz_noise, time_noise = [], []
+    for j, kj in enumerate(jax.random.split(jax.random.PRNGKey(1), K)):
+        k_noise, k_time = jax.random.split(kj)
+        time_noise.append(jax.random.normal(k_time, ()))
+        xyz_noise.append(jax.random.normal(k_noise, (N, 3)))
+        a, tm = MULTI_VIEWS[j]
+        js, jopt, jm = jfn(js, jopt, orbit_camera(
+            a, width=W, height=H, time=tm).to_device_dict(),
+            jnp.asarray(gts[j]), jnp.float32(tm), jnp.int32(it0 + j), kj,
+            None)
+    multi = tstep.make_train_step_multi(tc, 1, W, H, 1.3, 3, TOTAL_FRAME,
+                                        t(bg), K)
+    ts2, topt2, tm = multi(
+        state_from_params(params, alive, device="cpu", stats=stats),
+        opt_state_from_arrays(opt, device="cpu"),
+        [torbit(a, width=W, height=H, time=tm).to_device_dict("cpu")
+         for a, tm in MULTI_VIEWS],
+        [t(g) for g in gts], [torch.tensor(tm) for _, tm in MULTI_VIEWS],
+        it0, noises=[t(x) for x in xyz_noise],
+        time_noises=[t(x) for x in time_noise])
+
+    assert int(tm["n_dropped"]) == int(jm["n_dropped"]) == 0
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm["l1"]), float(jm["l1"]), rtol=1e-5)
+    assert int(topt2["step"]) == int(jopt["step"]) == 4 + K
+    groups = topt.active_groups(tc, 1)
+    for key, group in topt.GROUP_OF_PARAM.items():
+        if key not in ts2.params:
+            continue
+        tp, jp = _leaves(ts2.params[key]), _leaves(js.params[key])
+        if group not in groups:
+            for a, b in zip(tp, jp):
+                np.testing.assert_array_equal(n(a), n(b))
+            continue
+        lr = max(float(topt.group_lr(group, tc, 1.3, it0 + i))
+                 for i in range(K))
+        for a, b, mt, mj, vt, vj in zip(
+                tp, jp, _leaves(topt2["m"][key]), _leaves(jopt["m"][key]),
+                _leaves(topt2["v"][key]), _leaves(jopt["v"][key])):
+            ms = max(np.abs(n(mj)).max(), 1e-20)
+            np.testing.assert_allclose(n(mt), n(mj), rtol=0,
+                                       atol=K * 2e-4 * ms + 1e-10,
+                                       err_msg=f"m {key}")
+            vs = max(np.abs(n(vj)).max(), 1e-20)
+            np.testing.assert_allclose(n(vt), n(vj), rtol=0,
+                                       atol=K * 2e-4 * vs,
+                                       err_msg=f"v {key}")
+            np.testing.assert_allclose(n(a), n(b), rtol=0,
+                                       atol=K * 2e-3 * lr,
+                                       err_msg=f"param {key}")
+    np.testing.assert_array_equal(n(ts2.denom), n(js.denom))
+    np.testing.assert_array_equal(n(ts2.max_radii2D), n(js.max_radii2D))
+    for k in ("xyz_gradient_accum", "xyz_gradient_accum_max"):
+        ref = n(getattr(js, k))
+        np.testing.assert_allclose(n(getattr(ts2, k)), ref, rtol=0,
+                                   atol=K * 2e-4 * np.abs(ref).max(),
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("opacity_type", ["implicit", "explicit"])

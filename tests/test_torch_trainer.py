@@ -29,9 +29,10 @@ package's, on the `test` preset at 32x32.
   twin of tests/test_training.py::test_full_stage_progression), with its
   history, TensorBoard, PLY and checkpoint files.
 - The TensorBoard writer writes the JAX writer's bytes.
-- The two unported Trainer paths raise NotImplementedError
-  (steps_per_call > 1, profile_steps > 0); n_devices > 1 without a
-  process group raises naming torchrun.
+- The two Trainer paths once refused run: steps_per_call > 1 trains a
+  chunk in one multi-step call, profile_steps > 0 writes a trace (the
+  window cut short by the run's end); n_devices > 1 without a process
+  group raises naming torchrun.
 """
 import copy
 import os
@@ -400,21 +401,27 @@ def test_tb_writer_writes_the_jax_bytes(tmp_path, monkeypatch):
     assert a == b and len(a) > 500
 
 
-def test_unported_paths_raise(jinfo):
+def test_unported_paths_raise(jinfo, tmp_path, monkeypatch):
     info = _port_info(jinfo)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(get_preset("test"), Scene(info), device=CPU, quiet=True,
-                steps_per_call=4)
+    chunks = []
+    orig = Trainer.train_chunk
+    monkeypatch.setattr(Trainer, "train_chunk", lambda self, a, b: (
+        chunks.append((a, b)), orig(self, a, b))[1])
+    tr = Trainer(get_preset("test"), Scene(info), device=CPU, quiet=True,
+                 steps_per_call=4)
+    tr.run(iterations=6)
+    # [1, 4] in one call; 5 and 6 are no whole chunk and run alone
+    assert chunks == [(1, 4), (5, 5), (6, 6)] and tr.iteration == 6
     # several devices are ported; they need torchrun's process group
     with pytest.raises(RuntimeError, match="torchrun --standalone"):
         Trainer(get_preset("test"), Scene(info), device=CPU, quiet=True,
                 n_devices=2)
     cfg = get_preset("test")
-    cfg.train.profile_steps = 3
+    cfg.train.profile_steps, cfg.train.profile_from = 3, 1
     tr = Trainer(cfg, Scene(info), device=CPU, quiet=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.run(iterations=2)
-    assert tr.iteration == 0
+    tr.run(iterations=2, model_path=str(tmp_path))
+    assert tr.iteration == 2
+    assert os.listdir(tmp_path / "profile") == ["trace_iter1-2.json"]
     # the loaders are ported: a directory that holds no scene is refused
     with pytest.raises(ValueError, match="Could not recognize scene type"):
         load_scene_info(get_preset("test"))

@@ -43,6 +43,7 @@ from gaussianprediction_tpu_torch.ops import knn as tknn
 from gaussianprediction_tpu_torch.ops import mlp as tmlp
 from gaussianprediction_tpu_torch.ops import projection as tproj
 from gaussianprediction_tpu_torch.train import optimizer as topt
+from gaussianprediction_tpu_torch.train import step as tstep
 from gaussianprediction_tpu_torch.utils import image as timage
 from gaussianprediction_tpu_torch.utils import math as tmath
 from gaussianprediction_tpu_torch.utils import schedules as tsched
@@ -155,7 +156,8 @@ def test_adam_step(stage):
     for it in (100, 101, 102):
         jp, js = jopt.adam_step(jp, jax.tree.map(jnp.asarray, grads), js,
                                 cfg_j, stage, 1.3, jnp.int32(it))
-        tp, ts = topt.adam_step(tp, tg, ts, cfg_t, stage, 1.3, it)
+        tp, ts = topt.adam_step(tp, tg, ts, cfg_t, stage, tstep.row_lrs(
+            cfg_t, stage, tstep.step_scalars(cfg_t, stage, 1.3, [it])[0]))
     assert int(ts["step"]) == int(js["step"]) == 3
     for tree_t, tree_j in ((tp, jp), (ts["m"], js["m"]), (ts["v"], js["v"])):
         for a, b in zip(topt.tree_leaves(tree_t), jax.tree.leaves(tree_j)):
